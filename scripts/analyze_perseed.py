@@ -43,8 +43,8 @@ print(f"member columns ({X_mem.shape[1]}): {member_names}")
 
 from sklearn.linear_model import LinearRegression, Ridge
 
-from bbbp_tpu.ops.linear import NonNegativeLinearRegression
-from bbbp_tpu.train.loop import kfold_indices
+from bbbp.ops.linear import NonNegativeLinearRegression
+from bbbp.train.loop import kfold_indices
 
 folds = kfold_indices(n, 10, 42)
 

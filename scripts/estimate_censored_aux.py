@@ -25,9 +25,9 @@ def log(m):
     print(f"[estc +{time.time()-T0:6.0f}s] {m}", flush=True)
 
 
-from bbbp_tpu.train.transfer import raw_transfer_features, aux_classification_set
-from bbbp_tpu.pipelines.preprocess import ProcessedData
-from bbbp_tpu.train.loop import kfold_indices
+from bbbp.train.transfer import raw_transfer_features, aux_classification_set
+from bbbp.pipelines.preprocess import ProcessedData
+from bbbp.train.loop import kfold_indices
 from sklearn.linear_model import LinearRegression
 from sklearn.preprocessing import StandardScaler
 

@@ -26,9 +26,9 @@ def log(m):
     print(f"[estd2 +{time.time()-T0:6.0f}s] {m}", flush=True)
 
 
-from bbbp_tpu.train.transfer import raw_transfer_features
-from bbbp_tpu.pipelines.preprocess import ProcessedData
-from bbbp_tpu.train.loop import kfold_indices
+from bbbp.train.transfer import raw_transfer_features
+from bbbp.pipelines.preprocess import ProcessedData
+from bbbp.train.loop import kfold_indices
 from sklearn.preprocessing import StandardScaler
 from sklearn.decomposition import PCA
 from sklearn.linear_model import LinearRegression

@@ -1,7 +1,7 @@
 """Estimate (CPU, SCHED_IDLE) whether E-state indices + Moreau-Broto
 autocorrelations added to the descriptor block move the honest-protocol
 kernel/tree legs. Prototype descriptors computed inline; land them in
-bbbp_tpu/chem only if the measured gain is real."""
+bbbp/chem only if the measured gain is real."""
 import json
 import os
 import sys
@@ -20,12 +20,12 @@ def log(m):
     print(f"[estd +{time.time()-T0:6.0f}s] {m}", flush=True)
 
 
-from bbbp_tpu.chem.smiles import MolFromSmiles
-from bbbp_tpu.chem.depict import graph_distances
-from bbbp_tpu.chem.crippen import PARAMS, atom_type
-from bbbp_tpu.train.transfer import raw_transfer_features
-from bbbp_tpu.pipelines.preprocess import ProcessedData
-from bbbp_tpu.train.loop import kfold_indices
+from bbbp.chem.smiles import MolFromSmiles
+from bbbp.chem.depict import graph_distances
+from bbbp.chem.crippen import PARAMS, atom_type
+from bbbp.train.transfer import raw_transfer_features
+from bbbp.pipelines.preprocess import ProcessedData
+from bbbp.train.loop import kfold_indices
 
 _L = {1: 1, 6: 2, 7: 2, 8: 2, 9: 2, 14: 3, 15: 3, 16: 3, 17: 3, 35: 4, 53: 5}
 _ZV = {5: 3, 6: 4, 7: 5, 8: 6, 9: 7, 14: 4, 15: 5, 16: 6, 17: 7, 35: 7, 53: 7}

@@ -22,10 +22,10 @@ def log(m):
     print(f"[estk +{time.time()-T0:6.0f}s] {m}", flush=True)
 
 
-from bbbp_tpu.train.transfer import raw_transfer_features
-from bbbp_tpu.pipelines.preprocess import ProcessedData
-from bbbp_tpu.train.loop import kfold_indices
-from bbbp_tpu.chem.featurize import fingerprints
+from bbbp.train.transfer import raw_transfer_features
+from bbbp.pipelines.preprocess import ProcessedData
+from bbbp.train.loop import kfold_indices
+from bbbp.chem.featurize import fingerprints
 from sklearn.linear_model import LinearRegression
 from sklearn.preprocessing import StandardScaler
 

@@ -29,11 +29,11 @@ from sklearn.linear_model import LinearRegression
 from sklearn.neural_network import MLPRegressor
 from sklearn.preprocessing import StandardScaler
 
-from bbbp_tpu.chem.featurize import fingerprints
-from bbbp_tpu.pipelines.preprocess import ProcessedData
-from bbbp_tpu.train.loop import kfold_indices
-from bbbp_tpu.train.regression import _tree_features_global
-from bbbp_tpu.train.transfer import raw_transfer_features
+from bbbp.chem.featurize import fingerprints
+from bbbp.pipelines.preprocess import ProcessedData
+from bbbp.train.loop import kfold_indices
+from bbbp.train.regression import _tree_features_global
+from bbbp.train.transfer import raw_transfer_features
 
 data = ProcessedData.load("/root/repo/.bench_cache/pp_maccs_raw0.pkl")
 y = data.y.astype(np.float64)

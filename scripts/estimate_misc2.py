@@ -26,9 +26,9 @@ def log(m):
     print(f"[estm +{time.time()-T0:6.0f}s] {m}", flush=True)
 
 
-from bbbp_tpu.train.transfer import raw_transfer_features
-from bbbp_tpu.pipelines.preprocess import ProcessedData
-from bbbp_tpu.train.loop import kfold_indices
+from bbbp.train.transfer import raw_transfer_features
+from bbbp.pipelines.preprocess import ProcessedData
+from bbbp.train.loop import kfold_indices
 from sklearn.preprocessing import StandardScaler
 from sklearn.decomposition import PCA
 from sklearn.linear_model import LinearRegression
@@ -93,7 +93,7 @@ log(f"b. stacked as-is {r2(stacked):.4f} | isotonic recal {r2(rec_iso):.4f} "
 
 # --- c. residuals by quality group ---------------------------------------
 try:
-    from bbbp_tpu.data import load_b3db_regression
+    from bbbp.data import load_b3db_regression
     ds = load_b3db_regression()
     smap = {}
     for s, g in zip(ds.smiles, getattr(ds, "groups", [None] * len(ds.smiles))):

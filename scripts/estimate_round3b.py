@@ -36,9 +36,9 @@ from sklearn.ensemble import HistGradientBoostingRegressor
 from sklearn.linear_model import LinearRegression
 from sklearn.preprocessing import StandardScaler
 
-from bbbp_tpu.pipelines.preprocess import ProcessedData
-from bbbp_tpu.train.loop import kfold_indices
-from bbbp_tpu.train.transfer import raw_transfer_features
+from bbbp.pipelines.preprocess import ProcessedData
+from bbbp.train.loop import kfold_indices
+from bbbp.train.transfer import raw_transfer_features
 
 data = ProcessedData.load("/root/repo/.bench_cache/pp_maccs_raw0.pkl")
 y = np.asarray(data.y, np.float64)

@@ -30,11 +30,11 @@ def log(m):
 from sklearn.linear_model import LinearRegression
 from sklearn.preprocessing import StandardScaler
 
-from bbbp_tpu.chem.fingerprints import morgan_environments
-from bbbp_tpu.chem.smiles import MolFromSmiles
-from bbbp_tpu.pipelines.preprocess import ProcessedData
-from bbbp_tpu.train.loop import kfold_indices
-from bbbp_tpu.train.transfer import raw_transfer_features
+from bbbp.chem.fingerprints import morgan_environments
+from bbbp.chem.smiles import MolFromSmiles
+from bbbp.pipelines.preprocess import ProcessedData
+from bbbp.train.loop import kfold_indices
+from bbbp.train.transfer import raw_transfer_features
 
 data = ProcessedData.load("/root/repo/.bench_cache/pp_maccs_raw0.pkl")
 y = data.y.astype(np.float64)
@@ -138,7 +138,7 @@ for lam in (0.06, 0.1):
 # HistGB arm: swap the folded-count block inside the tree features
 from sklearn.ensemble import HistGradientBoostingRegressor
 
-from bbbp_tpu.train.regression import _tree_features_global
+from bbbp.train.regression import _tree_features_global
 
 xt = _tree_features_global(data)
 hgb = lambda: HistGradientBoostingRegressor(max_iter=300, learning_rate=0.05,

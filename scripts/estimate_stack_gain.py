@@ -23,10 +23,10 @@ def log(m):
     print(f"[ests +{time.time()-T0:6.0f}s] {m}", flush=True)
 
 
-from bbbp_tpu.train.transfer import raw_transfer_features
-from bbbp_tpu.pipelines.preprocess import ProcessedData
-from bbbp_tpu.train.loop import kfold_indices
-from bbbp_tpu.train.regression import _tree_features_global
+from bbbp.train.transfer import raw_transfer_features
+from bbbp.pipelines.preprocess import ProcessedData
+from bbbp.train.loop import kfold_indices
+from bbbp.train.regression import _tree_features_global
 from sklearn.linear_model import LinearRegression
 
 data = ProcessedData.load("/root/repo/.bench_cache/pp_maccs_raw0.pkl")

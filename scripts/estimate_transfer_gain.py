@@ -1,14 +1,14 @@
 """CPU-side estimate of the cross-task transfer gain (run at SCHED_IDLE
-priority while the TPU campaign owns the chip: chrt -i 0 python -u ...).
+priority beside a device job: chrt -i 0 python -u ...).
 
 Phase 1 (this script):
   1. build + cache the leak-screened aux set's raw features
-     (.bench_cache -> the TPU campaign reuses them, BBBP_TRANSFER_CACHE)
+     (.bench_cache -> the device campaign reuses them, BBBP_TRANSFER_CACHE)
   2. sklearn HistGB aux classifier -> holdout AUC + P(BBB+) for the
-     regression molecules (proxy for the framework's TPU forest engine)
+     regression molecules (proxy for the framework's device forest engine)
   3. 10-fold CV on the honest features: HistGBR with vs without the
      transfer columns; Tanimoto-KRR lambda selection; transfer-only leg
-  -> prints the expected per-leg deltas that decide the TPU campaign config.
+  -> prints the expected per-leg deltas that decide the campaign config.
 
 Uses sklearn ONLY as a cheap proxy for sizing; the committed pipeline runs
 on the framework's own engines (train.transfer).
@@ -31,17 +31,17 @@ def log(m):
     print(f"[est +{time.time()-T0:6.0f}s] {m}", flush=True)
 
 
-from bbbp_tpu.train.transfer import (aux_classification_set,
-                                     raw_transfer_features, _auc)
+from bbbp.train.transfer import (aux_classification_set,
+                                 raw_transfer_features, _auc)
 
 aux_smiles, aux_y, n_excl = aux_classification_set(verbose=True)
 log(f"aux set ready ({n_excl} excluded)")
 aux_desc, aux_maccs, aux_counts = raw_transfer_features(aux_smiles)
 log(f"aux raw features cached: desc={aux_desc.shape}")
 
-from bbbp_tpu.pipelines.preprocess import ProcessedData
-from bbbp_tpu.train.regression import _tree_features_global
-from bbbp_tpu.train.loop import kfold_indices
+from bbbp.pipelines.preprocess import ProcessedData
+from bbbp.train.regression import _tree_features_global
+from bbbp.train.loop import kfold_indices
 
 data = ProcessedData.load("/root/repo/.bench_cache/pp_maccs_raw0.pkl")
 reg_desc, reg_maccs, reg_counts = raw_transfer_features(data.smiles)

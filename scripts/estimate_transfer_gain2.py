@@ -26,11 +26,11 @@ def log(m):
     print(f"[est2 +{time.time()-T0:6.0f}s] {m}", flush=True)
 
 
-from bbbp_tpu.train.transfer import aux_classification_set, \
+from bbbp.train.transfer import aux_classification_set, \
     raw_transfer_features, _auc
-from bbbp_tpu.pipelines.preprocess import ProcessedData
-from bbbp_tpu.train.regression import _tree_features_global
-from bbbp_tpu.train.loop import kfold_indices
+from bbbp.pipelines.preprocess import ProcessedData
+from bbbp.train.regression import _tree_features_global
+from bbbp.train.loop import kfold_indices
 
 aux_smiles, aux_y, _ = aux_classification_set()
 aux_desc, aux_maccs, aux_counts = raw_transfer_features(aux_smiles)

@@ -20,9 +20,9 @@ def log(m):
     print(f"[est3 +{time.time()-T0:6.0f}s] {m}", flush=True)
 
 
-from bbbp_tpu.train.transfer import raw_transfer_features
-from bbbp_tpu.pipelines.preprocess import ProcessedData
-from bbbp_tpu.train.loop import kfold_indices
+from bbbp.train.transfer import raw_transfer_features
+from bbbp.pipelines.preprocess import ProcessedData
+from bbbp.train.loop import kfold_indices
 
 data = ProcessedData.load("/root/repo/.bench_cache/pp_maccs_raw0.pkl")
 reg_desc, reg_maccs, reg_counts = raw_transfer_features(data.smiles)

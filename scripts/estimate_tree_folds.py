@@ -28,9 +28,9 @@ def log(m):
 from sklearn.ensemble import HistGradientBoostingRegressor, RandomForestRegressor
 from sklearn.linear_model import LinearRegression
 
-from bbbp_tpu.pipelines.preprocess import ProcessedData
-from bbbp_tpu.train.loop import kfold_indices
-from bbbp_tpu.train.regression import _tree_features_global
+from bbbp.pipelines.preprocess import ProcessedData
+from bbbp.train.loop import kfold_indices
+from bbbp.train.regression import _tree_features_global
 
 data = ProcessedData.load("/root/repo/.bench_cache/pp_maccs_raw0.pkl")
 y = data.y

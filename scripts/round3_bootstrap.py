@@ -11,7 +11,7 @@ AuxPretrainConfig, which is reproduced verbatim from
 scripts/round3_transfer_campaign.py, so the trunk matches the A/B "KEEP"
 decision already recorded there).
 
-Gate first: bash scripts/tpu_gate2.sh && python -u scripts/round3_bootstrap.py
+Run: python -u scripts/round3_bootstrap.py
 """
 import json
 import os
@@ -36,11 +36,11 @@ import jax
 import jax.numpy as jnp
 
 assert float(jnp.ones((64, 64)).sum()) == 4096.0
-log(f"TPU healthy: {jax.devices()}")
+log(f"devices: {jax.devices()}")
 
 # ---- stage 1: preprocess caches (host-side, C++ featurizer) ----------------
-from bbbp_tpu.pipelines.preprocess import (PreprocessConfig, ProcessedData,
-                                           preprocess_regression)
+from bbbp.pipelines.preprocess import (PreprocessConfig, ProcessedData,
+                                       preprocess_regression)
 
 for keep_raw in (False, True):
     path = os.path.join(CACHE, f"pp_maccs_raw{int(keep_raw)}.pkl")
@@ -55,9 +55,9 @@ for keep_raw in (False, True):
         f"desc={None if d.desc_norm is None else d.desc_norm.shape} "
         f"({time.time()-t0:.0f}s) -> {path}")
 
-# ---- stage 2: MLM pretraining (TPU) ----------------------------------------
+# ---- stage 2: MLM pretraining (device) -------------------------------------
 if not os.path.exists(os.path.join(PRE_DIR, "params.pkl")):
-    from bbbp_tpu.train.bert_pretrain import MLMPretrainConfig, pretrain
+    from bbbp.train.bert_pretrain import MLMPretrainConfig, pretrain
 
     log("MLM pretraining (120k corpus, 2 epochs)...")
     t0 = time.time()
@@ -67,11 +67,11 @@ if not os.path.exists(os.path.join(PRE_DIR, "params.pkl")):
 else:
     log("MLM pretrained dir cached")
 
-# ---- stage 3: aux-graph pretraining (TPU) ----------------------------------
+# ---- stage 3: aux-graph pretraining (device) -------------------------------
 # Same config as round3_transfer_campaign.py stage 1 (the A/B test KEPT the
 # graph warm start and DROPPED the multimodal one, so only graph is rebuilt).
-from bbbp_tpu.train.aux_pretrain import (AuxPretrainConfig, load_warm_start,
-                                         pretrain_aux)
+from bbbp.train.aux_pretrain import (AuxPretrainConfig, load_warm_start,
+                                     pretrain_aux)
 
 cfg_p = AuxPretrainConfig(kind="graph", epochs=30, graph_hidden=192,
                           graph_layers=5)
@@ -83,7 +83,7 @@ log(f"aux graph pretrain: AUC={auc:.4f} ({time.time()-t0:.0f}s) -> {path}")
 # ---- stage 4: cached screening model (bench.py + chunk probe need it) ------
 sm_path = os.path.join(CACHE, "screening_model.pkl")
 if not os.path.exists(sm_path):
-    from bbbp_tpu.pipelines.screen import train_default_model
+    from bbbp.pipelines.screen import train_default_model
 
     t0 = time.time()
     train_default_model(workers=1).save(sm_path)

@@ -5,7 +5,7 @@ the kernel-ridge legs via one full gram + host solves), transfer leg, and
 the morgan-bit GBDT leg (fp_tree_legs — estimate_fp_trees.py measured it as
 the round's largest stack delta, +0.0037 crossfit).
 
-Gate first: bash scripts/tpu_gate.sh && python -u scripts/round3_final_push.py
+Run: python -u scripts/round3_final_push.py
 """
 import json
 import os
@@ -35,10 +35,10 @@ import jax
 import jax.numpy as jnp
 
 assert float(jnp.ones((64, 64)).sum()) == 4096.0
-log(f"TPU healthy: {jax.devices()}")
+log(f"devices: {jax.devices()}")
 
-from bbbp_tpu.pipelines.preprocess import ProcessedData
-from bbbp_tpu.train.regression import RegressionTrainConfig, run_regression
+from bbbp.pipelines.preprocess import ProcessedData
+from bbbp.train.regression import RegressionTrainConfig, run_regression
 
 best = {}
 if os.path.exists(TUNED):

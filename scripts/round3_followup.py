@@ -3,7 +3,7 @@ the replica HBM cap after the 40-replica OOM), then — only if the search
 beats the hand-set default meaningfully — re-run the honest/strict finals
 with the tuned NN and out_dir artifacts (OOF pickle for later re-stacking).
 
-Gate first: bash scripts/tpu_gate.sh && python -u scripts/round3_followup.py
+Run: python -u scripts/round3_followup.py
 """
 import json
 import os
@@ -28,12 +28,12 @@ import jax
 import jax.numpy as jnp
 
 assert float(jnp.ones((64, 64)).sum()) == 4096.0
-log(f"TPU healthy: {jax.devices()}")
+log(f"devices: {jax.devices()}")
 
-from bbbp_tpu.models.transformer_cnn import MultiModalRegressor
-from bbbp_tpu.pipelines.preprocess import ProcessedData
-from bbbp_tpu.train.nn_search import search_nn_cv
-from bbbp_tpu.train.regression import RegressionTrainConfig, run_regression
+from bbbp.models.transformer_cnn import MultiModalRegressor
+from bbbp.pipelines.preprocess import ProcessedData
+from bbbp.train.nn_search import search_nn_cv
+from bbbp.train.regression import RegressionTrainConfig, run_regression
 
 data = ProcessedData.load("/root/repo/.bench_cache/pp_maccs_raw0.pkl")
 y = data.y

@@ -5,8 +5,7 @@ honest pipeline at several split seeds turns our headline into a
 distribution (results/regression_maccs_honest_seed<N>.json) instead of one
 draw. CPU proxy of the same question: scripts/estimate_split_variance.py.
 
-Gate first: bash scripts/tpu_gate2.sh 7200 && \
-    python -u scripts/round3_split_seeds.py 43
+Run: python -u scripts/round3_split_seeds.py 43
 """
 import json
 import os
@@ -36,10 +35,10 @@ import jax
 import jax.numpy as jnp
 
 assert float(jnp.ones((64, 64)).sum()) == 4096.0
-log(f"TPU healthy: {jax.devices()}")
+log(f"devices: {jax.devices()}")
 
-from bbbp_tpu.pipelines.preprocess import ProcessedData
-from bbbp_tpu.train.regression import RegressionTrainConfig, run_regression
+from bbbp.pipelines.preprocess import ProcessedData
+from bbbp.train.regression import RegressionTrainConfig, run_regression
 
 best = {}
 if os.path.exists(TUNED):

@@ -1,7 +1,6 @@
 """Round-3 transfer campaign — the north-star push (honest stacked R2>=0.70).
 
-Stages (ONE process so compiled programs amortize; gate BEFORE launching
-via scripts/tpu_gate.sh):
+Stages (ONE process so compiled programs amortize):
   1. aux-pretrain the MPNN trunk on the 6.4k leak-screened classification
      molecules (train.aux_pretrain, kind=graph) — holdout AUC reported
   2. aux-pretrain the multimodal Transformer+CNN trunk (kind=multimodal)
@@ -37,13 +36,13 @@ import jax
 import jax.numpy as jnp
 
 assert float(jnp.ones((64, 64)).sum()) == 4096.0
-log(f"TPU healthy: {jax.devices()}")
+log(f"devices: {jax.devices()}")
 
-from bbbp_tpu.pipelines.preprocess import ProcessedData
-from bbbp_tpu.train.aux_pretrain import (AuxPretrainConfig, load_warm_start,
-                                         pretrain_aux)
-from bbbp_tpu.train.regression import RegressionTrainConfig, run_regression
-from bbbp_tpu.train.loop import train_cv
+from bbbp.pipelines.preprocess import ProcessedData
+from bbbp.train.aux_pretrain import (AuxPretrainConfig, load_warm_start,
+                                     pretrain_aux)
+from bbbp.train.regression import RegressionTrainConfig, run_regression
+from bbbp.train.loop import train_cv
 
 best = {}
 if os.path.exists(TUNED):
@@ -85,8 +84,8 @@ def quick_r2(oof):
 
 
 if "graph" in paths:
-    from bbbp_tpu.chem.graph_features import graph_features
-    from bbbp_tpu.models.gnn import MPNNRegressor
+    from bbbp.chem.graph_features import graph_features
+    from bbbp.models.gnn import MPNNRegressor
 
     feats, _, adj_t, mask, _ = graph_features(data.smiles, max_atoms=128,
                                               edge_types=True)
@@ -104,7 +103,7 @@ if "graph" in paths:
     log(f"graph warm start: {'KEEP' if use_warm['graph'] else 'DROP'}")
 
 if "multimodal" in paths:
-    from bbbp_tpu.models.transformer_cnn import MultiModalRegressor
+    from bbbp.models.transformer_cnn import MultiModalRegressor
 
     nn_fp = data.nn_fp_features()
     img = data.img_norm.reshape(n, 128, 128, 3)

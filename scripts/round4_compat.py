@@ -10,7 +10,7 @@ This run applies the full honest-push lever set on the compat protocol
 pipeline family): 13 legs, split_repeats=2, nn_split_mix, kernel ~LOO,
 IDF chem kernels, morgan-bit GBDT, transfer columns.
 
-Gate first: bash scripts/tpu_gate2.sh 7200 && python -u scripts/round4_compat.py
+Run: python -u scripts/round4_compat.py
 """
 import json
 import os
@@ -35,11 +35,11 @@ import jax
 import jax.numpy as jnp
 
 assert float(jnp.ones((64, 64)).sum()) == 4096.0
-log(f"TPU healthy: {jax.devices()}")
+log(f"devices: {jax.devices()}")
 
-from bbbp_tpu.pipelines.preprocess import (PreprocessConfig, ProcessedData,
-                                           preprocess_regression)
-from bbbp_tpu.train.regression import RegressionTrainConfig, run_regression
+from bbbp.pipelines.preprocess import (PreprocessConfig, ProcessedData,
+                                       preprocess_regression)
+from bbbp.train.regression import RegressionTrainConfig, run_regression
 
 # compat preprocess (per-100-row scaler on the label-correlated row order)
 pp_path = os.path.join(CACHE, "pp_maccs_compat100.pkl")

@@ -10,7 +10,7 @@ protocol, seed 42 — scale+PCA on all rows, SMOTETomek, then split), and each
 model's tuned params come from the run's own hyperparam_search_{m}.csv best
 row (the argmax the run refit with, scoring=accuracy).
 
-Gate first: bash scripts/tpu_gate2.sh 7200 && python -u scripts/round4_curves.py
+Run: python -u scripts/round4_curves.py
 """
 import ast
 import csv
@@ -34,16 +34,16 @@ import jax
 import jax.numpy as jnp
 
 assert float(jnp.ones((64, 64)).sum()) == 4096.0
-log(f"TPU healthy: {jax.devices()}")
+log(f"devices: {jax.devices()}")
 
-from bbbp_tpu.chem.featurize import fingerprints
-from bbbp_tpu.data import load_b3db_classification
-from bbbp_tpu.ops import PCA, StandardScaler
-from bbbp_tpu.ops.resample import smote_tomek
-from bbbp_tpu.reporting import plots
-from bbbp_tpu.train.classification import _factory_from_params
-from bbbp_tpu.train.learning_curve import (learning_curve,
-                                           save_learning_scores_csv)
+from bbbp.chem.featurize import fingerprints
+from bbbp.data import load_b3db_classification
+from bbbp.ops import PCA, StandardScaler
+from bbbp.ops.resample import smote_tomek
+from bbbp.reporting import plots
+from bbbp.train.classification import _factory_from_params
+from bbbp.train.learning_curve import (learning_curve,
+                                       save_learning_scores_csv)
 
 MODELS = ("knn", "logreg", "svc", "bnb", "dt", "rf", "gb", "mlp", "xgb",
           "cat")

@@ -6,7 +6,7 @@ matrix pools to one static-width row per molecule
 (chem.graph_features.pooled_graph_features) and feeds the same grid-searched
 zoo. Also writes the gpu_features.npy contract next to the run artifacts.
 
-Gate first: bash scripts/tpu_gate2.sh 7200 && python -u scripts/round4_graph_baseline.py
+Run: python -u scripts/round4_graph_baseline.py
 """
 import json
 import sys
@@ -25,10 +25,10 @@ import jax
 import jax.numpy as jnp
 
 assert float(jnp.ones((64, 64)).sum()) == 4096.0
-log(f"TPU healthy: {jax.devices()}")
+log(f"devices: {jax.devices()}")
 
-from bbbp_tpu.pipelines.featurize import featurize_graph_b3db
-from bbbp_tpu.train.baseline import BaselineConfig, run_baseline
+from bbbp.pipelines.featurize import featurize_graph_b3db
+from bbbp.train.baseline import BaselineConfig, run_baseline
 
 OUT = "/root/repo/results/baseline_graph_r4"
 featurize_graph_b3db("classification", OUT)

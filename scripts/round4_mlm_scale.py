@@ -9,7 +9,7 @@ cached 120k one on the leg itself and on the stack (swap the smiles column
 in the saved honest OOF matrix, refit the linear meta — the ESTIMATES.md
 methodology). Adoption bar: leg R2 >= ~0.50 and stack moves.
 
-Gate first: bash scripts/tpu_gate2.sh 7200 && python -u scripts/round4_mlm_scale.py
+Run: python -u scripts/round4_mlm_scale.py
 """
 import json
 import os
@@ -36,12 +36,12 @@ import jax
 import jax.numpy as jnp
 
 assert float(jnp.ones((64, 64)).sum()) == 4096.0
-log(f"TPU healthy: {jax.devices()}")
+log(f"devices: {jax.devices()}")
 
-from bbbp_tpu.models.bert import BertRegressor, SmilesTokenizer
-from bbbp_tpu.pipelines.preprocess import ProcessedData
-from bbbp_tpu.train.bert_pretrain import MLMPretrainConfig, pretrain
-from bbbp_tpu.train.loop import train_cv
+from bbbp.models.bert import BertRegressor, SmilesTokenizer
+from bbbp.pipelines.preprocess import ProcessedData
+from bbbp.train.bert_pretrain import MLMPretrainConfig, pretrain
+from bbbp.train.loop import train_cv
 
 # ---- 3x-corpus MLM (cached across retries) --------------------------------
 if not os.path.exists(os.path.join(DIR_360, "params.pkl")):

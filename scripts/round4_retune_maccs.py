@@ -9,7 +9,7 @@ noise ~1/sqrt(R) so the CV winner transfers to test. Same trial set,
 same search spaces, same protocol as the r3 run — only the selection
 estimator changes.
 
-Gate first: bash scripts/tpu_gate2.sh 7200 && python -u scripts/round4_retune_maccs.py
+Run: python -u scripts/round4_retune_maccs.py
 """
 import json
 import sys
@@ -28,12 +28,12 @@ import jax
 import jax.numpy as jnp
 
 assert float(jnp.ones((64, 64)).sum()) == 4096.0
-log(f"TPU healthy: {jax.devices()}")
+log(f"devices: {jax.devices()}")
 
-from bbbp_tpu.chem.featurize import fingerprints
-from bbbp_tpu.data import load_b3db_classification
-from bbbp_tpu.train.classification import (ClassificationTrainConfig,
-                                           run_classification)
+from bbbp.chem.featurize import fingerprints
+from bbbp.data import load_b3db_classification
+from bbbp.train.classification import (ClassificationTrainConfig,
+                                       run_classification)
 
 data = load_b3db_classification()
 fp = fingerprints(data.smiles, kind="maccs", workers=1)

@@ -8,7 +8,7 @@ Reads the full-stack artifacts
   results/regression_maccs_honest_seed44.json
 (skipping any that have not landed yet), writes results/SPLIT_SEEDS.json with
 per-seed stacked numbers plus mean/sd, and prints the markdown table for
-RESULTS.md / README. CPU-only: no JAX import, safe to run while the TPU queue
+RESULTS.md / README. CPU-only: no JAX import, safe to run while a device job
 is busy.
 
 Reference bar this measures against: the single-split stacked artifact of

@@ -22,7 +22,7 @@ wherever the strict protocol permits:
 - split_repeats / nn_split_mix stay OFF: the strict per-fold tree features
   are built for the primary split only (disclosed in RESULTS.md).
 
-Gate first: bash scripts/tpu_gate2.sh 7200 && python -u scripts/round4_strict.py
+Run: python -u scripts/round4_strict.py
 """
 import json
 import os
@@ -46,10 +46,10 @@ import jax
 import jax.numpy as jnp
 
 assert float(jnp.ones((64, 64)).sum()) == 4096.0
-log(f"TPU healthy: {jax.devices()}")
+log(f"devices: {jax.devices()}")
 
-from bbbp_tpu.pipelines.preprocess import ProcessedData
-from bbbp_tpu.train.regression import RegressionTrainConfig, run_regression
+from bbbp.pipelines.preprocess import ProcessedData
+from bbbp.train.regression import RegressionTrainConfig, run_regression
 
 best = {}
 if os.path.exists(TUNED):

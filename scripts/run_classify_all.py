@@ -8,9 +8,9 @@ sys.path.insert(0, "/root/repo")
 
 import numpy as np
 
-from bbbp_tpu.chem.featurize import fingerprints
-from bbbp_tpu.data import load_b3db_classification
-from bbbp_tpu.train.classification import (
+from bbbp.chem.featurize import fingerprints
+from bbbp.data import load_b3db_classification
+from bbbp.train.classification import (
     ClassificationTrainConfig, run_classification)
 
 T0 = time.time()

@@ -19,7 +19,7 @@ def log(msg):
 # ---- stage 1: MLM pretraining (skip if artifact exists) --------------------
 PRE_DIR = "/root/repo/.bench_cache/bert_pretrained"
 if not os.path.exists(os.path.join(PRE_DIR, "params.pkl")):
-    from bbbp_tpu.train.bert_pretrain import MLMPretrainConfig, pretrain
+    from bbbp.train.bert_pretrain import MLMPretrainConfig, pretrain
 
     log("MLM pretraining...")
     pretrain(MLMPretrainConfig(corpus_size=120_000, epochs=2, batch_size=256,
@@ -29,8 +29,8 @@ else:
     log("pretrained dir cached")
 
 # ---- stage 2: honest regression, all legs ---------------------------------
-from bbbp_tpu.pipelines.preprocess import PreprocessConfig, ProcessedData, preprocess_regression
-from bbbp_tpu.train.regression import RegressionTrainConfig, run_regression
+from bbbp.pipelines.preprocess import PreprocessConfig, ProcessedData, preprocess_regression
+from bbbp.train.regression import RegressionTrainConfig, run_regression
 
 
 def load_data(keep_raw):
@@ -47,8 +47,8 @@ for protocol in ("honest", "strict"):
     data = load_data(protocol == "strict")
     # refresh descriptors if the cached preprocess predates the chi upgrade
     if data.desc_norm is not None and data.desc_norm.shape[1] < 31:
-        from bbbp_tpu.chem.descriptors import descriptor_matrix
-        from bbbp_tpu.ops import StandardScaler
+        from bbbp.chem.descriptors import descriptor_matrix
+        from bbbp.ops import StandardScaler
 
         log(f"refreshing descriptors for {protocol} cache...")
         desc, _ = descriptor_matrix(data.smiles)

@@ -24,7 +24,7 @@ def _toy_smiles_task(n=60):
 
 class TestTokenizer:
     def test_smiles_tokens(self):
-        from bbbp_tpu.models.bert import SmilesTokenizer
+        from bbbp.models.bert import SmilesTokenizer
 
         tok = SmilesTokenizer(max_len=16).fit(["CCO", "c1cc(Cl)ccc1[NH3+]"])
         ids = tok.encode("c1cc(Cl)ccc1")
@@ -34,14 +34,14 @@ class TestTokenizer:
         assert "Cl" in tok.vocab and "[NH3+]" in tok.vocab
 
     def test_roundtrip_json(self):
-        from bbbp_tpu.models.bert import SmilesTokenizer
+        from bbbp.models.bert import SmilesTokenizer
 
         tok = SmilesTokenizer(max_len=8).fit(["CCO"])
         tok2 = SmilesTokenizer.from_json(tok.to_json())
         assert np.array_equal(tok.encode("CCO"), tok2.encode("CCO"))
 
     def test_number_tokenizer(self):
-        from bbbp_tpu.models.bert import NumberStringTokenizer
+        from bbbp.models.bert import NumberStringTokenizer
 
         tok = NumberStringTokenizer(max_len=32).fit(["[ 1.25 -3.5  0.1 ]"])
         assert "1.25" in tok.vocab and "-3.5" in tok.vocab
@@ -49,7 +49,7 @@ class TestTokenizer:
 
 class TestBert:
     def test_learns_and_roundtrips(self, tmp_path):
-        from bbbp_tpu.models.bert import BertClassifier
+        from bbbp.models.bert import BertClassifier
 
         x, y = _toy_smiles_task(60)
         clf = BertClassifier(epochs=8, batch_size=16, lr=1e-3, n_layers=2,
@@ -64,7 +64,7 @@ class TestBert:
         np.testing.assert_array_equal(clf.predict(x), clf2.predict(x))
 
     def test_compat_vector_mode(self):
-        from bbbp_tpu.models.bert import BertClassifier
+        from bbbp.models.bert import BertClassifier
 
         xv = rng.standard_normal((40, 5)).astype(np.float32)
         yv = (xv[:, 0] > 0).astype(int)
@@ -75,7 +75,7 @@ class TestBert:
 
 class TestFlow:
     def test_flow_classifier_learns(self, tmp_path):
-        from bbbp_tpu.train.flow_pipeline import FlowClassifier
+        from bbbp.train.flow_pipeline import FlowClassifier
 
         x = rng.standard_normal((200, 10)).astype(np.float32)
         y = (x[:, 0] + x[:, 1] > 0).astype(int)
@@ -90,7 +90,7 @@ class TestFlow:
 
 class TestSearch:
     def test_stratified_folds_preserve_ratio(self):
-        from bbbp_tpu.train.search import stratified_kfold_indices
+        from bbbp.train.search import stratified_kfold_indices
 
         y = np.array([0] * 80 + [1] * 20)
         folds = stratified_kfold_indices(y, 5, seed=0)
@@ -99,8 +99,8 @@ class TestSearch:
             assert 2 <= y[f].sum() <= 6  # ~4 positives per fold
 
     def test_random_search_finds_better_params(self):
-        from bbbp_tpu.ops.linear import LogisticRegression
-        from bbbp_tpu.train.search import RandomizedSearchCV
+        from bbbp.ops.linear import LogisticRegression
+        from bbbp.train.search import RandomizedSearchCV
 
         x = rng.standard_normal((300, 6)).astype(np.float32)
         y = (x[:, 0] - x[:, 1] > 0).astype(int)
@@ -114,12 +114,12 @@ class TestSearch:
         assert "mean_accuracy" in res.trials[0]
 
     def test_grid_search_enumerates(self):
-        from bbbp_tpu.ops.forest_tpu import TPUGBDTClassifier
-        from bbbp_tpu.train.search import GridSearchCV
+        from bbbp.ops.forest_device import DeviceGBDTClassifier
+        from bbbp.train.search import GridSearchCV
 
         x = rng.standard_normal((150, 5)).astype(np.float32)
         y = (x[:, 0] > 0).astype(int)
-        gs = GridSearchCV(TPUGBDTClassifier,
+        gs = GridSearchCV(DeviceGBDTClassifier,
                           {"n_estimators": [5, 10], "max_depth": [2, 3]},
                           cv=2, scoring=["accuracy"])
         res = gs.fit(x, y)

@@ -11,7 +11,7 @@ rng = np.random.default_rng(9)
 class TestBitops:
     def test_pack_unpack_roundtrip(self):
         import jax.numpy as jnp
-        from bbbp_tpu.ops.bitops import pack_bits, unpack_bits_jnp
+        from bbbp.ops.bitops import pack_bits, unpack_bits_jnp
 
         dense = (rng.random((50, 2048)) < 0.05).astype(np.float32)
         packed = pack_bits(dense)
@@ -21,7 +21,7 @@ class TestBitops:
 
     def test_projection_matches_dense_pipeline(self):
         import jax.numpy as jnp
-        from bbbp_tpu.ops.bitops import pack_bits, packed_project, project_weights
+        from bbbp.ops.bitops import pack_bits, packed_project, project_weights
 
         dense = (rng.random((40, 256)) < 0.1).astype(np.float32)
         sm = rng.random(256).astype(np.float32)
@@ -31,13 +31,30 @@ class TestBitops:
         w, c0 = project_weights(sm, ss, pm, C)
         ref = ((dense - sm) / ss - pm) @ C.T
         out = np.asarray(packed_project(jnp.asarray(pack_bits(dense)),
-                                        jnp.asarray(w), jnp.asarray(c0),
-                                        use_pallas=False))
+                                        jnp.asarray(w), jnp.asarray(c0)))
         np.testing.assert_allclose(out, ref, rtol=1e-3, atol=1e-3)
 
+    def test_projection_at_screening_width_matches_dense_highest(self):
+        """2048 bits → 30 PCA scores, the shipped screening shape, against
+        the dense f32 product at HIGHEST precision."""
+        import jax
+        import jax.numpy as jnp
+        from bbbp.ops.bitops import pack_bits, packed_project
+
+        dense = (rng.random((300, 2048)) < 0.03).astype(np.float32)
+        w = (rng.standard_normal((2048, 30)) / 8).astype(np.float32)
+        c0 = rng.standard_normal(30).astype(np.float32)
+        ref = np.asarray(jnp.matmul(jnp.asarray(dense), jnp.asarray(w),
+                                    precision=jax.lax.Precision.HIGHEST)
+                         + c0)
+        out = np.asarray(packed_project(jnp.asarray(pack_bits(dense)),
+                                        jnp.asarray(w), jnp.asarray(c0)))
+        assert out.shape == (300, 30)
+        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
     def test_native_packed_matches_dense(self):
-        from bbbp_tpu.native import bindings as nb
-        from bbbp_tpu.ops.bitops import pack_bits
+        from bbbp.native import bindings as nb
+        from bbbp.ops.bitops import pack_bits
 
         if not nb.available():
             pytest.skip("native lib not built")
@@ -50,7 +67,7 @@ class TestBitops:
 
 class TestZinc:
     def test_smi_file_and_dir(self, tmp_path):
-        from bbbp_tpu.data.zinc import iter_smi_file, iter_smi_dir, chunked
+        from bbbp.data.zinc import iter_smi_file, iter_smi_dir, chunked
 
         p = tmp_path / "a.smi"
         p.write_text("smiles zinc_id\nCCO ZINC01\nc1ccccc1 ZINC02\n")
@@ -63,7 +80,7 @@ class TestZinc:
         assert list(chunked(iter(range(5)), 2)) == [[0, 1], [2, 3], [4]]
 
     def test_wget_parser(self, tmp_path):
-        from bbbp_tpu.data.zinc import parse_wget_list
+        from bbbp.data.zinc import parse_wget_list
 
         p = tmp_path / "dl.wget"
         p.write_text('wget http://files.docking.org/2D/FE/FEAA.smi -O FEAA.smi\n'
@@ -72,15 +89,15 @@ class TestZinc:
         assert len(urls) == 2 and urls[0].endswith("FEAA.smi")
 
     def test_zinc_url_construction(self):
-        from bbbp_tpu.data.zinc import zinc_substance_url
+        from bbbp.data.zinc import zinc_substance_url
 
         assert zinc_substance_url("ZINC000000001", "smi").endswith(
             "substances/ZINC000000001.smi")
         assert "ZINC000000000042" in zinc_substance_url("42")
 
     def test_synthetic_smiles_all_parse(self):
-        from bbbp_tpu.data.zinc import synthetic_smiles
-        from bbbp_tpu.chem.smiles import MolFromSmiles
+        from bbbp.data.zinc import synthetic_smiles
+        from bbbp.chem.smiles import MolFromSmiles
 
         mols = synthetic_smiles(100, seed=3)
         assert len(mols) == 100
@@ -89,8 +106,8 @@ class TestZinc:
 
 class TestNativeMaccs:
     def test_native_maccs_matches_python(self):
-        from bbbp_tpu.native import bindings as nb
-        from bbbp_tpu.chem.featurize import fingerprints
+        from bbbp.native import bindings as nb
+        from bbbp.chem.featurize import fingerprints
 
         if not nb.available():
             pytest.skip("native lib not built")
@@ -108,8 +125,8 @@ class TestNativePathFallback:
         # in path_bits_dfs (the packed-uint64 key only fits <255 bond
         # indices); both branches must stay bit-exact with the Python
         # reference implementation.
-        from bbbp_tpu.native import bindings as nb
-        from bbbp_tpu.chem.featurize import fingerprints
+        from bbbp.native import bindings as nb
+        from bbbp.chem.featurize import fingerprints
 
         if not nb.available():
             pytest.skip("native lib not built")

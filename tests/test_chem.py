@@ -8,14 +8,14 @@ not reproducible without RDKit in the image.
 import numpy as np
 import pytest
 
-from bbbp_tpu.chem import (
+from bbbp.chem import (
     MolFromSmiles,
     morgan_fingerprint,
     maccs_fingerprint,
     path_fingerprint,
 )
-from bbbp_tpu.chem.fingerprints import morgan_bits, path_bits
-from bbbp_tpu.chem.smiles import mol_from_smiles_strict
+from bbbp.chem.fingerprints import morgan_bits, path_bits
+from bbbp.chem.smiles import mol_from_smiles_strict
 
 
 class TestParser:
@@ -73,8 +73,8 @@ class TestParser:
         assert MolFromSmiles("[Qz]") is None           # unknown element
         assert MolFromSmiles("%%") is None
 
-    def test_b3db_full_parse_coverage(self):
-        from bbbp_tpu.data import load_b3db_regression, load_b3db_classification
+    def test_b3db_full_parse_coverage(self, b3db):
+        from bbbp.data import load_b3db_regression, load_b3db_classification
 
         reg = load_b3db_regression()
         cls = load_b3db_classification()
@@ -132,7 +132,7 @@ class TestFingerprints:
 
 class TestDepiction:
     def test_image_shape_and_range(self):
-        from bbbp_tpu.chem.depict import depict
+        from bbbp.chem.depict import depict
 
         img = depict("CC(=O)Oc1ccccc1C(=O)O", size=128)
         assert img.shape == (128, 128, 3)
@@ -141,14 +141,14 @@ class TestDepiction:
         assert (img < 0.95).sum() > 50
 
     def test_deterministic(self):
-        from bbbp_tpu.chem.depict import depict
+        from bbbp.chem.depict import depict
 
         a = depict("c1ccccc1O", size=64)
         b = depict("c1ccccc1O", size=64)
         assert np.array_equal(a, b)
 
     def test_heteroatom_coloring(self):
-        from bbbp_tpu.chem.depict import depict
+        from bbbp.chem.depict import depict
 
         img = depict("CCCCO", size=64)
         # oxygen disk adds red-dominant pixels
@@ -158,7 +158,7 @@ class TestDepiction:
 
 class TestBatchFeaturize:
     def test_quarantine_bad_smiles(self):
-        from bbbp_tpu.chem.featurize import fingerprints
+        from bbbp.chem.featurize import fingerprints
 
         res = fingerprints(["CCO", "NOT_A_SMILES(((", "c1ccccc1"], workers=1,
                            use_native=False)
@@ -167,9 +167,9 @@ class TestBatchFeaturize:
         assert res.features[1].sum() == 0.0
         assert res.features[0].sum() > 0
 
-    def test_parallel_matches_serial(self):
-        from bbbp_tpu.chem.featurize import fingerprints
-        from bbbp_tpu.data import load_b3db_regression
+    def test_parallel_matches_serial(self, b3db):
+        from bbbp.chem.featurize import fingerprints
+        from bbbp.data import load_b3db_regression
 
         smiles = load_b3db_regression().smiles[:64]
         a = fingerprints(smiles, workers=1, use_native=False).features
@@ -179,7 +179,7 @@ class TestBatchFeaturize:
 
 class TestAtomPairs:
     def test_shape_and_invariance(self):
-        from bbbp_tpu.chem.fingerprints import atom_pair_fingerprint, atom_pair_bits
+        from bbbp.chem.fingerprints import atom_pair_fingerprint, atom_pair_bits
 
         m1 = MolFromSmiles("Cc1ccccc1O")
         m2 = MolFromSmiles("Oc1ccccc1C")
@@ -188,7 +188,7 @@ class TestAtomPairs:
         assert fp.shape == (2048,) and fp.sum() > 5
 
     def test_distance_sensitivity(self):
-        from bbbp_tpu.chem.fingerprints import atom_pair_bits
+        from bbbp.chem.fingerprints import atom_pair_bits
 
         # para vs ortho dichlorobenzene differ only in Cl-Cl topological distance
         para = MolFromSmiles("Clc1ccc(Cl)cc1")
@@ -196,6 +196,6 @@ class TestAtomPairs:
         assert atom_pair_bits(para) != atom_pair_bits(ortho)
 
     def test_single_atom(self):
-        from bbbp_tpu.chem.fingerprints import atom_pair_fingerprint
+        from bbbp.chem.fingerprints import atom_pair_fingerprint
 
         assert atom_pair_fingerprint(MolFromSmiles("C")).sum() == 0

@@ -7,7 +7,7 @@ import pytest
 
 class TestStandardize:
     def test_salt_stripping(self):
-        from bbbp_tpu.chem.standardize import standardize_smiles
+        from bbbp.chem.standardize import standardize_smiles
 
         out = standardize_smiles("CC(=O)O.[Na+]")
         # sodium dropped, acid kept (neutral already)
@@ -15,8 +15,8 @@ class TestStandardize:
         assert "C" in out
 
     def test_neutralize_ammonium(self):
-        from bbbp_tpu.chem.standardize import standardize_smiles
-        from bbbp_tpu.chem.smiles import MolFromSmiles
+        from bbbp.chem.standardize import standardize_smiles
+        from bbbp.chem.smiles import MolFromSmiles
 
         out = standardize_smiles("CC[NH3+].[Cl-]")
         m = MolFromSmiles(out)
@@ -25,22 +25,22 @@ class TestStandardize:
         assert m.total_h(n.idx) == 2  # ethylamine NH2
 
     def test_neutralize_carboxylate(self):
-        from bbbp_tpu.chem.standardize import standardize_smiles
-        from bbbp_tpu.chem.smiles import MolFromSmiles
+        from bbbp.chem.standardize import standardize_smiles
+        from bbbp.chem.smiles import MolFromSmiles
 
         out = standardize_smiles("CC(=O)[O-].[Na+]")
         m = MolFromSmiles(out)
         assert all(a.charge == 0 for a in m.atoms)
 
     def test_restricted_atoms_rejected(self):
-        from bbbp_tpu.chem.standardize import standardize_smiles
+        from bbbp.chem.standardize import standardize_smiles
 
         assert standardize_smiles("CC[Hg]CC") is None
         assert standardize_smiles("c1ccccc1") is not None
 
     def test_quaternary_n_kept_charged(self):
-        from bbbp_tpu.chem.standardize import standardize_smiles
-        from bbbp_tpu.chem.smiles import MolFromSmiles
+        from bbbp.chem.standardize import standardize_smiles
+        from bbbp.chem.smiles import MolFromSmiles
 
         out = standardize_smiles("C[N+](C)(C)C.[Cl-]")
         m = MolFromSmiles(out)
@@ -50,7 +50,7 @@ class TestStandardize:
 
 class TestCuration:
     def test_combine_and_split(self):
-        from bbbp_tpu.data.curation import combine_tables, split_regression_classification
+        from bbbp.data.curation import combine_tables, split_regression_classification
 
         t1 = pd.DataFrame({"SMILES": ["CCO", "c1ccccc1"], "logBB": [0.1, None],
                            "BBB+/BBB-": [None, "BBB+"]})
@@ -65,7 +65,7 @@ class TestCuration:
         assert len(reg) == 2 and len(cls) == 1
 
     def test_regression_reconciliation_groups(self):
-        from bbbp_tpu.data.curation import reconcile_regression_labels
+        from bbbp.data.curation import reconcile_regression_labels
 
         df = pd.DataFrame({
             "canonical_smiles": ["a", "b", "b", "c", "c", "d", "d"],
@@ -80,7 +80,7 @@ class TestCuration:
         assert "d" not in got  # range 2.0 > 1.0 → dropped
 
     def test_classification_voting(self):
-        from bbbp_tpu.data.curation import reconcile_classification_labels
+        from bbbp.data.curation import reconcile_classification_labels
 
         df = pd.DataFrame({
             "canonical_smiles": ["a", "a", "b", "b", "b", "c", "c"],
@@ -93,7 +93,7 @@ class TestCuration:
         assert "c" not in got  # tie → dropped
 
     def test_pubchem_urls(self):
-        from bbbp_tpu.data.curation import PubChemClient
+        from bbbp.data.curation import PubChemClient
 
         c = PubChemClient()
         assert "compound/name/aspirin/cids" in c.url_name_to_cid("aspirin")
@@ -103,7 +103,7 @@ class TestCuration:
 
 class TestHighlights:
     def test_three_renderings(self, tmp_path):
-        from bbbp_tpu.chem.highlight import draw_fingerprint_highlights
+        from bbbp.chem.highlight import draw_fingerprint_highlights
 
         imgs = draw_fingerprint_highlights("CC(=O)Oc1ccccc1C(=O)O", size=96)
         assert set(imgs) == {"morgan", "structural", "rings"}
@@ -116,7 +116,7 @@ class TestHighlights:
 class TestCheckpoint:
     def test_roundtrip(self, tmp_path):
         import jax.numpy as jnp
-        from bbbp_tpu.utils.checkpoint import save_checkpoint, restore_checkpoint, latest_step
+        from bbbp.utils.checkpoint import save_checkpoint, restore_checkpoint, latest_step
 
         state = {"params": {"w": jnp.ones((3, 3)), "b": jnp.zeros(3)},
                  "step": jnp.asarray(7)}

@@ -6,8 +6,8 @@ import pytest
 
 class TestDescriptors:
     def test_known_values(self):
-        from bbbp_tpu.chem.descriptors import compute_descriptors, DESCRIPTOR_NAMES
-        from bbbp_tpu.chem.smiles import MolFromSmiles
+        from bbbp.chem.descriptors import compute_descriptors, DESCRIPTOR_NAMES
+        from bbbp.chem.smiles import MolFromSmiles
 
         d = dict(zip(DESCRIPTOR_NAMES,
                      compute_descriptors(MolFromSmiles("CC(=O)Oc1ccccc1C(=O)O"))))
@@ -20,8 +20,8 @@ class TestDescriptors:
         assert d["rotatable_bonds"] == 2 or d["rotatable_bonds"] == 3
 
     def test_ethanol(self):
-        from bbbp_tpu.chem.descriptors import compute_descriptors, DESCRIPTOR_NAMES
-        from bbbp_tpu.chem.smiles import MolFromSmiles
+        from bbbp.chem.descriptors import compute_descriptors, DESCRIPTOR_NAMES
+        from bbbp.chem.smiles import MolFromSmiles
 
         d = dict(zip(DESCRIPTOR_NAMES, compute_descriptors(MolFromSmiles("CCO"))))
         assert abs(d["mw"] - 46.07) < 0.2
@@ -29,7 +29,7 @@ class TestDescriptors:
         assert d["hbd"] == 1 and d["hba"] == 1
 
     def test_batch_quarantine(self):
-        from bbbp_tpu.chem.descriptors import descriptor_matrix, N_DESCRIPTORS
+        from bbbp.chem.descriptors import descriptor_matrix, N_DESCRIPTORS
 
         X, bad = descriptor_matrix(["CCO", "((bad", "c1ccccc1"])
         assert X.shape == (3, N_DESCRIPTORS)
@@ -37,8 +37,8 @@ class TestDescriptors:
         assert X[1].sum() == 0
 
     def test_lipophilicity_ordering(self):
-        from bbbp_tpu.chem.descriptors import compute_descriptors, DESCRIPTOR_NAMES
-        from bbbp_tpu.chem.smiles import MolFromSmiles
+        from bbbp.chem.descriptors import compute_descriptors, DESCRIPTOR_NAMES
+        from bbbp.chem.smiles import MolFromSmiles
 
         i = DESCRIPTOR_NAMES.index("logp")
         hexane = compute_descriptors(MolFromSmiles("CCCCCC"))[i]
@@ -48,7 +48,7 @@ class TestDescriptors:
 
 class TestGraphFeatures:
     def test_shapes_and_adjacency(self):
-        from bbbp_tpu.chem.graph_features import graph_features, N_ATOM_FEATURES
+        from bbbp.chem.graph_features import graph_features, N_ATOM_FEATURES
 
         feats, adj, mask, bad = graph_features(["CCO", "c1ccccc1"], max_atoms=16)
         assert feats.shape == (2, 16, N_ATOM_FEATURES)
@@ -60,7 +60,7 @@ class TestGraphFeatures:
         assert bad == []
 
     def test_onehots_valid(self):
-        from bbbp_tpu.chem.graph_features import graph_features
+        from bbbp.chem.graph_features import graph_features
 
         feats, _, mask, _ = graph_features(["CC(=O)Oc1ccccc1C(=O)O"], max_atoms=32)
         active = feats[0][mask[0] > 0]
@@ -70,8 +70,8 @@ class TestGraphFeatures:
 
 class TestLearningCurve:
     def test_curve_shapes_and_trend(self, tmp_path):
-        from bbbp_tpu.ops.linear import LogisticRegression
-        from bbbp_tpu.train.learning_curve import learning_curve, save_learning_scores_csv
+        from bbbp.ops.linear import LogisticRegression
+        from bbbp.train.learning_curve import learning_curve, save_learning_scores_csv
 
         rng = np.random.default_rng(0)
         x = rng.standard_normal((300, 5)).astype(np.float32)
@@ -88,7 +88,7 @@ class TestLearningCurve:
 class TestProfiling:
     def test_step_timer(self, tmp_path):
         import jax.numpy as jnp
-        from bbbp_tpu.utils.profiling import StepTimer, debug_nans
+        from bbbp.utils.profiling import StepTimer, debug_nans
 
         t = StepTimer(str(tmp_path / "steps.jsonl"))
         with t.step("host_work"):
@@ -100,7 +100,7 @@ class TestProfiling:
             pass
 
     def test_weighted_ensemble_metric(self):
-        from bbbp_tpu.train.weighted_ensemble import rounding_accuracy
+        from bbbp.train.weighted_ensemble import rounding_accuracy
 
         y = np.array([0.123, 0.456])
         assert rounding_accuracy(y, y + 0.001) == 1.0   # same at 2 decimals

@@ -18,7 +18,7 @@ class TestModels:
         return out
 
     def test_multimodal_fusion_variants(self):
-        from bbbp_tpu.models import MultiModalRegressor
+        from bbbp.models import MultiModalRegressor
 
         for fusion in ("multihead", "gate", "crossmodal"):
             m = MultiModalRegressor(fp_dim=32, n_layers=2, emb_dim=32,
@@ -28,7 +28,7 @@ class TestModels:
             assert np.isfinite(np.asarray(out)).all()
 
     def test_fp_tokens_mode(self):
-        from bbbp_tpu.models import MultiModalRegressor
+        from bbbp.models import MultiModalRegressor
 
         m = MultiModalRegressor(fp_dim=32, n_layers=2, emb_dim=32,
                                 fp_tokens=4, head_dims=(32,))
@@ -36,7 +36,7 @@ class TestModels:
         assert out.shape == (4,)
 
     def test_flat_image_input_reshaped(self):
-        from bbbp_tpu.models import MultiModalRegressor
+        from bbbp.models import MultiModalRegressor
 
         m = MultiModalRegressor(fp_dim=16, n_layers=1, emb_dim=16, head_dims=(16,))
         fp = jnp.ones((2, 16))
@@ -46,7 +46,7 @@ class TestModels:
         assert out.shape == (2,)
 
     def test_dual_branch_mlp(self):
-        from bbbp_tpu.models import DualBranchMLP
+        from bbbp.models import DualBranchMLP
 
         m = DualBranchMLP(fp_dims=(32, 16), img_dims=(32, 16), head_dims=(16,))
         fp = jnp.ones((4, 24))
@@ -57,7 +57,7 @@ class TestModels:
         assert out.shape == (4,)
 
     def test_flow_model_forward_and_reverse_layer(self):
-        from bbbp_tpu.models.flow import FlowModel, FlowLayer
+        from bbbp.models.flow import FlowModel, FlowLayer
 
         m = FlowModel(hidden_dim=16, n_layers=2, n_classes=2)
         x = jnp.ones((4, 10))
@@ -73,8 +73,8 @@ class TestModels:
 
 class TestKFoldTrainer:
     def test_oof_covers_all_and_learns(self):
-        from bbbp_tpu.models import MultiModalRegressor
-        from bbbp_tpu.train.loop import train_multimodal_cv
+        from bbbp.models import MultiModalRegressor
+        from bbbp.train.loop import train_multimodal_cv
 
         N = 90
         fp = rng.standard_normal((N, 16)).astype(np.float32)
@@ -91,7 +91,7 @@ class TestKFoldTrainer:
         assert res.train_losses[:, -1].mean() < res.train_losses[:, 0].mean()
 
     def test_kfold_indices_partition(self):
-        from bbbp_tpu.train.loop import kfold_indices
+        from bbbp.train.loop import kfold_indices
 
         folds = kfold_indices(103, 5, seed=1)
         allidx = np.concatenate(folds)
@@ -100,7 +100,7 @@ class TestKFoldTrainer:
 
 class TestMesh:
     def test_make_mesh_and_shard(self):
-        from bbbp_tpu.parallel import make_mesh, batch_sharding
+        from bbbp.parallel import make_mesh, batch_sharding
 
         mesh = make_mesh()
         assert mesh.shape["data"] == 8
@@ -111,7 +111,7 @@ class TestMesh:
         assert sharded.sharding.num_devices == 8
 
     def test_prefetch_matches_plain(self):
-        from bbbp_tpu.parallel import prefetch_to_device
+        from bbbp.parallel import prefetch_to_device
 
         items = [np.full((4,), i, np.float32) for i in range(10)]
         out = list(prefetch_to_device(iter(items), depth=2))
@@ -132,9 +132,9 @@ class TestGraftEntry:
 
 class TestMeshTraining:
     def test_fold_axis_shards_over_mesh(self):
-        from bbbp_tpu.models import MultiModalRegressor
-        from bbbp_tpu.parallel import make_mesh
-        from bbbp_tpu.train.loop import train_multimodal_cv
+        from bbbp.models import MultiModalRegressor
+        from bbbp.parallel import make_mesh
+        from bbbp.train.loop import train_multimodal_cv
 
         mesh = make_mesh()  # 8 virtual CPU devices, data axis = 8
         N = 64
@@ -152,8 +152,8 @@ class TestMeshTraining:
 
 class TestGNN:
     def test_gcn_learns_ring_count(self):
-        from bbbp_tpu.chem.graph_features import graph_features
-        from bbbp_tpu.models.gnn import GCNRegressor
+        from bbbp.chem.graph_features import graph_features
+        from bbbp.models.gnn import GCNRegressor
         import optax
 
         smiles = (["c1ccccc1", "CCCCCC", "c1ccncc1", "CCOCC", "c1ccc2ccccc2c1",

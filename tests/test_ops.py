@@ -10,7 +10,7 @@ rng = np.random.default_rng(42)
 class TestScalerPCA:
     def test_standard_scaler_matches_sklearn(self):
         from sklearn.preprocessing import StandardScaler as SkScaler
-        from bbbp_tpu.ops import StandardScaler
+        from bbbp.ops import StandardScaler
 
         x = rng.standard_normal((200, 17)).astype(np.float32) * 3 + 1
         ours = np.asarray(StandardScaler().fit_transform(x))
@@ -19,7 +19,7 @@ class TestScalerPCA:
 
     def test_pca_matches_sklearn(self):
         from sklearn.decomposition import PCA as SkPCA
-        from bbbp_tpu.ops import PCA
+        from bbbp.ops import PCA
 
         # distinct variance spectrum so components are unique up to sign
         x = rng.standard_normal((300, 40)).astype(np.float32)
@@ -38,7 +38,7 @@ class TestScalerPCA:
         )
 
     def test_pca_variance_fraction_mode(self):
-        from bbbp_tpu.ops import PCA
+        from bbbp.ops import PCA
 
         x = rng.standard_normal((100, 20)).astype(np.float32)
         p = PCA(0.95).fit(x)
@@ -46,8 +46,8 @@ class TestScalerPCA:
         assert float(np.sum(np.asarray(p.explained_variance_ratio_))) >= 0.95
 
     def test_per_batch_compat_modes(self):
-        from bbbp_tpu.ops.scaler import standardize_per_batch
-        from bbbp_tpu.ops.pca import pca_per_batch
+        from bbbp.ops.scaler import standardize_per_batch
+        from bbbp.ops.pca import pca_per_batch
 
         x = rng.standard_normal((250, 12)).astype(np.float32)
         s = standardize_per_batch(x, batch_size=100)
@@ -59,7 +59,7 @@ class TestScalerPCA:
 
     def test_interactions_match_sklearn(self):
         from sklearn.preprocessing import PolynomialFeatures
-        from bbbp_tpu.ops import interaction_features
+        from bbbp.ops import interaction_features
 
         x = rng.standard_normal((50, 7)).astype(np.float32)
         ours = np.asarray(interaction_features(x))
@@ -72,7 +72,7 @@ class TestScalerPCA:
 class TestMetrics:
     def test_classification_metrics_match_sklearn(self):
         import sklearn.metrics as skm
-        from bbbp_tpu.ops import metrics as m
+        from bbbp.ops import metrics as m
 
         y = rng.integers(0, 2, 500)
         score = rng.random(500) * 0.5 + y * 0.3
@@ -87,7 +87,7 @@ class TestMetrics:
 
     def test_roc_auc_with_ties(self):
         import sklearn.metrics as skm
-        from bbbp_tpu.ops import metrics as m
+        from bbbp.ops import metrics as m
 
         y = rng.integers(0, 2, 300)
         score = np.round(rng.random(300), 1)  # heavy ties
@@ -95,7 +95,7 @@ class TestMetrics:
 
     def test_regression_metrics(self):
         import sklearn.metrics as skm
-        from bbbp_tpu.ops import metrics as m
+        from bbbp.ops import metrics as m
 
         y = rng.standard_normal(200)
         p = y + 0.3 * rng.standard_normal(200)
@@ -105,7 +105,7 @@ class TestMetrics:
 
 class TestOutliersResample:
     def test_isolation_forest_finds_planted_outliers(self):
-        from bbbp_tpu.ops.outliers import IsolationForest
+        from bbbp.ops.outliers import IsolationForest
 
         x = rng.standard_normal((400, 8)).astype(np.float32)
         x[:20] += 8.0  # planted outliers
@@ -117,7 +117,7 @@ class TestOutliersResample:
         assert (flagged < 20).mean() > 0.8
 
     def test_smote_balances_classes(self):
-        from bbbp_tpu.ops.resample import smote
+        from bbbp.ops.resample import smote
 
         x = rng.standard_normal((120, 10)).astype(np.float32)
         y = np.array([0] * 100 + [1] * 20)
@@ -129,7 +129,7 @@ class TestOutliersResample:
         assert ((synth >= mins) & (synth <= maxs)).all()
 
     def test_smote_tomek_runs(self):
-        from bbbp_tpu.ops.resample import smote_tomek
+        from bbbp.ops.resample import smote_tomek
 
         x = rng.standard_normal((150, 6)).astype(np.float32)
         y = (x[:, 0] + 0.5 * rng.standard_normal(150) > 0.8).astype(int)
@@ -149,25 +149,25 @@ class TestForest:
         return 1 - ((self.yt - p) ** 2).sum() / ((self.yt - self.yt.mean()) ** 2).sum()
 
     def test_gbdt_regressor_learns(self):
-        from bbbp_tpu.ops.forest import GBDTRegressor
+        from bbbp.ops.forest import GBDTRegressor
 
         m = GBDTRegressor(n_estimators=60, max_depth=4).fit(self.X, self.y)
         assert self._r2(m.predict(self.Xt)) > 0.3
 
     def test_rf_regressor_learns(self):
-        from bbbp_tpu.ops.forest import RandomForestRegressor
+        from bbbp.ops.forest import RandomForestRegressor
 
         m = RandomForestRegressor(n_estimators=30, max_depth=10).fit(self.X, self.y)
         assert self._r2(m.predict(self.Xt)) > 0.2
 
     def test_oblivious_gbdt_learns(self):
-        from bbbp_tpu.ops.forest import GBDTRegressor
+        from bbbp.ops.forest import GBDTRegressor
 
         m = GBDTRegressor(n_estimators=60, max_depth=5, oblivious=True).fit(self.X, self.y)
         assert self._r2(m.predict(self.Xt)) > 0.2
 
     def test_gbdt_classifier(self):
-        from bbbp_tpu.ops.forest import GBDTClassifier
+        from bbbp.ops.forest import GBDTClassifier
 
         yc = (self.y > 0).astype(np.int32)
         yct = (self.yt > 0).astype(np.int32)
@@ -177,7 +177,7 @@ class TestForest:
         np.testing.assert_allclose(proba.sum(1), 1.0, atol=1e-5)
 
     def test_jax_predict_matches_host_traversal(self):
-        from bbbp_tpu.ops.forest import GBDTRegressor, _numpy_tree_predict
+        from bbbp.ops.forest import GBDTRegressor, _numpy_tree_predict
 
         m = GBDTRegressor(n_estimators=10, max_depth=4).fit(self.X, self.y)
         jax_pred = m.predict(self.Xt)
@@ -190,7 +190,7 @@ class TestForest:
 class TestLinearZoo:
     def test_linreg_matches_sklearn(self):
         from sklearn.linear_model import LinearRegression as SkLR
-        from bbbp_tpu.ops.linear import LinearRegression
+        from bbbp.ops.linear import LinearRegression
 
         x = rng.standard_normal((200, 10)).astype(np.float32)
         y = x @ rng.standard_normal(10) + 0.5
@@ -201,7 +201,7 @@ class TestLinearZoo:
 
     def test_logreg_close_to_sklearn(self):
         from sklearn.linear_model import LogisticRegression as SkLogit
-        from bbbp_tpu.ops.linear import LogisticRegression
+        from bbbp.ops.linear import LogisticRegression
 
         x = rng.standard_normal((400, 8)).astype(np.float32)
         y = (x[:, 0] - x[:, 1] + 0.3 * rng.standard_normal(400) > 0).astype(int)
@@ -211,7 +211,7 @@ class TestLinearZoo:
         assert agree > 0.98
 
     def test_svm_separates(self):
-        from bbbp_tpu.ops.linear import LinearSVC
+        from bbbp.ops.linear import LinearSVC
 
         x = rng.standard_normal((300, 5)).astype(np.float32)
         y = (x[:, 0] + x[:, 1] > 0).astype(int)
@@ -222,7 +222,7 @@ class TestLinearZoo:
 
     def test_naive_bayes(self):
         from sklearn.naive_bayes import GaussianNB as SkGNB, BernoulliNB as SkBNB
-        from bbbp_tpu.ops.linear import GaussianNB, BernoulliNB
+        from bbbp.ops.linear import GaussianNB, BernoulliNB
 
         x = rng.standard_normal((300, 6)).astype(np.float32)
         y = (x[:, 0] > 0).astype(int)
@@ -233,7 +233,7 @@ class TestLinearZoo:
 
     def test_knn_matches_sklearn(self):
         from sklearn.neighbors import KNeighborsClassifier as SkKNN
-        from bbbp_tpu.ops.linear import KNeighborsClassifier
+        from bbbp.ops.linear import KNeighborsClassifier
 
         x = rng.standard_normal((200, 4)).astype(np.float32)
         y = (x[:, 0] > 0).astype(int)
@@ -243,7 +243,7 @@ class TestLinearZoo:
         assert (ours == theirs).mean() > 0.95
 
     def test_mlp_learns(self):
-        from bbbp_tpu.ops.linear import MLPClassifier
+        from bbbp.ops.linear import MLPClassifier
 
         x = rng.standard_normal((400, 6)).astype(np.float32)
         y = ((x[:, 0] * x[:, 1]) > 0).astype(int)  # XOR-ish, needs hidden layer

@@ -11,7 +11,7 @@ rng = np.random.default_rng(3)
 
 class TestMetricsIO:
     def test_csv_roundtrip(self, tmp_path):
-        from bbbp_tpu.reporting.metrics_io import write_metrics_csv, read_metrics_csv
+        from bbbp.reporting.metrics_io import write_metrics_csv, read_metrics_csv
 
         rep = {"rf": {"accuracy": 0.91, "f1": 0.9},
                "knn": {"accuracy": 0.85, "f1": 0.84}}
@@ -21,7 +21,7 @@ class TestMetricsIO:
         assert abs(back["rf"]["accuracy"] - 0.91) < 1e-9
 
     def test_jsonl(self, tmp_path):
-        from bbbp_tpu.reporting.metrics_io import append_jsonl
+        from bbbp.reporting.metrics_io import append_jsonl
         import json
 
         p = str(tmp_path / "log.jsonl")
@@ -33,7 +33,7 @@ class TestMetricsIO:
 
 class TestPlots:
     def test_all_plots_render(self, tmp_path):
-        from bbbp_tpu.reporting import plots
+        from bbbp.reporting import plots
 
         y = rng.integers(0, 2, 100)
         p = (y + rng.random(100) > 0.9).astype(int)
@@ -71,8 +71,8 @@ class TestPlots:
 
 class TestTreeSHAP:
     def test_additivity_gbdt(self):
-        from bbbp_tpu.ops.forest import GBDTRegressor
-        from bbbp_tpu.reporting.attribution import forest_shap_values
+        from bbbp.ops.forest import GBDTRegressor
+        from bbbp.reporting.attribution import forest_shap_values
 
         X = rng.standard_normal((200, 6)).astype(np.float32)
         y = (X[:, 0] * 2 + X[:, 1] ** 2).astype(np.float32)
@@ -88,8 +88,8 @@ class TestTreeSHAP:
         np.testing.assert_allclose(base + phi.sum(1), pred, rtol=1e-3, atol=1e-3)
 
     def test_irrelevant_feature_gets_zero(self):
-        from bbbp_tpu.ops.forest import GBDTRegressor
-        from bbbp_tpu.reporting.attribution import forest_shap_values
+        from bbbp.ops.forest import GBDTRegressor
+        from bbbp.reporting.attribution import forest_shap_values
 
         X = rng.standard_normal((300, 4)).astype(np.float32)
         y = X[:, 0].astype(np.float32)      # only feature 0 matters
@@ -100,8 +100,8 @@ class TestTreeSHAP:
     def test_vectorized_matches_scalar_oracle(self):
         # the batched tree_shap_values must be numerically identical to the
         # literal per-sample Lundberg Algorithm 2 (_tree_shap_values_scalar)
-        from bbbp_tpu.ops.forest import GBDTRegressor
-        from bbbp_tpu.reporting.attribution import (
+        from bbbp.ops.forest import GBDTRegressor
+        from bbbp.reporting.attribution import (
             _tree_shap_values_scalar, tree_shap_values)
 
         X = rng.standard_normal((400, 8)).astype(np.float32)
@@ -115,8 +115,8 @@ class TestTreeSHAP:
                 rtol=1e-9, atol=1e-12)
 
     def test_feature_importance(self):
-        from bbbp_tpu.ops.forest import GBDTRegressor
-        from bbbp_tpu.reporting.attribution import forest_feature_importance
+        from bbbp.ops.forest import GBDTRegressor
+        from bbbp.reporting.attribution import forest_feature_importance
 
         X = rng.standard_normal((300, 5)).astype(np.float32)
         y = X[:, 2].astype(np.float32)
@@ -128,7 +128,7 @@ class TestTreeSHAP:
 class TestIntegratedGradients:
     def test_linear_model_exact(self):
         import jax.numpy as jnp
-        from bbbp_tpu.reporting.attribution import integrated_gradients
+        from bbbp.reporting.attribution import integrated_gradients
 
         w = jnp.asarray(rng.standard_normal(5).astype(np.float32))
 
@@ -143,7 +143,7 @@ class TestIntegratedGradients:
 
     def test_completeness(self):
         import jax.numpy as jnp
-        from bbbp_tpu.reporting.attribution import integrated_gradients
+        from bbbp.reporting.attribution import integrated_gradients
 
         def f(x):
             return jnp.tanh(x).sum(axis=-1)

@@ -9,8 +9,8 @@ import pytest
 class TestCrippen:
     def test_known_logp_values(self):
         """Exact matches against published Wildman–Crippen results."""
-        from bbbp_tpu.chem.crippen import crippen_logp_mr
-        from bbbp_tpu.chem.smiles import MolFromSmiles
+        from bbbp.chem.crippen import crippen_logp_mr
+        from bbbp.chem.smiles import MolFromSmiles
 
         cases = {
             "c1ccccc1": 1.6866,                   # benzene
@@ -25,9 +25,9 @@ class TestCrippen:
             assert mr > 0
 
     def test_descriptor_matrix_has_crippen(self):
-        from bbbp_tpu.chem.descriptors import (
+        from bbbp.chem.descriptors import (
             DESCRIPTOR_NAMES, compute_descriptors)
-        from bbbp_tpu.chem.smiles import MolFromSmiles
+        from bbbp.chem.smiles import MolFromSmiles
 
         d = dict(zip(DESCRIPTOR_NAMES,
                      compute_descriptors(MolFromSmiles("NCCc1ccccc1C(=O)O"))))
@@ -38,9 +38,9 @@ class TestCrippen:
 
 class TestCountFingerprints:
     def test_counts_vs_bits(self):
-        from bbbp_tpu.chem.fingerprints import (
+        from bbbp.chem.fingerprints import (
             morgan_count_fingerprint, morgan_fingerprint)
-        from bbbp_tpu.chem.smiles import MolFromSmiles
+        from bbbp.chem.smiles import MolFromSmiles
 
         mol = MolFromSmiles("CCCCCCCC")      # repeated CH2 environments
         bits = morgan_fingerprint(mol)
@@ -50,7 +50,7 @@ class TestCountFingerprints:
         assert counts.sum() > bits.sum()
 
     def test_featurize_kind(self):
-        from bbbp_tpu.chem.featurize import fingerprints
+        from bbbp.chem.featurize import fingerprints
 
         res = fingerprints(["CCO", "not_a_smiles("], kind="morgan_counts",
                            workers=1)
@@ -66,7 +66,7 @@ class TestBatchedSearch:
         return x, y
 
     def test_logreg_and_knn(self):
-        from bbbp_tpu.train.batched_search import batched_random_search
+        from bbbp.train.batched_search import batched_random_search
 
         x, y = self._data()
         r = batched_random_search(
@@ -80,7 +80,7 @@ class TestBatchedSearch:
         assert r2.best_score > 0.8
 
     def test_forest_group_batched(self):
-        from bbbp_tpu.train.batched_search import batched_random_search
+        from bbbp.train.batched_search import batched_random_search
 
         x, y = self._data()
         r = batched_random_search(
@@ -97,7 +97,7 @@ class TestEarlyStopping:
     def test_patience_stops_and_restores_best(self):
         import jax.numpy as jnp
         from flax import linen as nn
-        from bbbp_tpu.train.loop import train_cv
+        from bbbp.train.loop import train_cv
 
         class Tiny(nn.Module):
             @nn.compact
@@ -117,7 +117,7 @@ class TestEarlyStopping:
 
     def test_fold_affine_applies(self):
         from flax import linen as nn
-        from bbbp_tpu.train.loop import train_cv
+        from bbbp.train.loop import train_cv
 
         class Linear1(nn.Module):
             @nn.compact
@@ -146,12 +146,12 @@ class TestWideForest:
         must leave the backend able to run more programs and fetch results."""
         import jax
         import jax.numpy as jnp
-        from bbbp_tpu.ops.forest_tpu import TPUGBDTRegressor
+        from bbbp.ops.forest_device import DeviceGBDTRegressor
 
         rng = np.random.default_rng(0)
         x = rng.normal(size=(220, 2600)).astype(np.float32)
         y = (x[:, :4].sum(1)).astype(np.float32)
-        m = TPUGBDTRegressor(n_estimators=30, learning_rate=0.2, max_depth=4,
+        m = DeviceGBDTRegressor(n_estimators=30, learning_rate=0.2, max_depth=4,
                              seed=0).fit(x, y)
         p = m.predict(x)
         assert 1 - np.mean((p - y) ** 2) / np.var(y) > 0.7
@@ -160,7 +160,7 @@ class TestWideForest:
     def test_launch_split_matches_single_launch(self):
         """Multi-launch boosting must equal one launch (same keys per chunk
         aren't required — but the ensemble quality must hold)."""
-        import bbbp_tpu.ops.forest_tpu as ft
+        import bbbp.ops.forest_device as ft
 
         rng = np.random.default_rng(1)
         x = rng.normal(size=(200, 16)).astype(np.float32)
@@ -168,7 +168,7 @@ class TestWideForest:
         old = ft.SCATTER_SEGMENT_BUDGET
         try:
             ft.SCATTER_SEGMENT_BUDGET = ft._tree_scan_segments(200, 16, 4) * 10
-            m = ft.TPUGBDTRegressor(n_estimators=35, learning_rate=0.2,
+            m = ft.DeviceGBDTRegressor(n_estimators=35, learning_rate=0.2,
                                     max_depth=4, seed=0).fit(x, y)
             assert m.ensemble_.feat.shape[0] == 35   # all trees present
             p = m.predict(x)
@@ -179,8 +179,8 @@ class TestWideForest:
 
 class TestBertPretrain:
     def test_mlm_pretrain_finetune_roundtrip(self, tmp_path):
-        from bbbp_tpu.models.bert import BertClassifier
-        from bbbp_tpu.train.bert_pretrain import MLMPretrainConfig, pretrain
+        from bbbp.models.bert import BertClassifier
+        from bbbp.train.bert_pretrain import MLMPretrainConfig, pretrain
 
         corpus = ["CCO", "CCN", "c1ccccc1", "CC(=O)O", "CCOC", "CCCl",
                   "c1ccncc1", "CCS", "CC(C)O", "C1CCCCC1"] * 20
@@ -203,7 +203,7 @@ class TestMeshScreen:
     def test_sharded_matches_unsharded(self, tmp_path):
         import jax
         from jax.sharding import Mesh
-        from bbbp_tpu.pipelines.screen import ScreeningModel, screen
+        from bbbp.pipelines.screen import ScreeningModel, screen
 
         rng = np.random.default_rng(0)
         smiles_pool = ["CCO", "c1ccccc1", "CC(=O)Oc1ccccc1C(=O)O", "CCN",
@@ -226,7 +226,7 @@ class TestMeshScreen:
         import jax
         import jax.numpy as jnp
         from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-        from bbbp_tpu.pipelines.screen import ScreeningModel, _make_device_fn
+        from bbbp.pipelines.screen import ScreeningModel, _make_device_fn
 
         model = ScreeningModel.train(["CCO", "CCN", "c1ccccc1", "CCS"] * 8,
                                      np.array([0, 1, 0, 1] * 8), pca_dim=4,
@@ -243,7 +243,7 @@ class TestMeshScreen:
 class TestKernelShap:
     def test_linear_model_recovers_exact_shapley(self):
         """For f(x)=w·x the Shapley values are w_i (x_i - E[bg_i]) exactly."""
-        from bbbp_tpu.reporting.attribution import kernel_shap
+        from bbbp.reporting.attribution import kernel_shap
 
         rng = np.random.default_rng(0)
         d = 6
@@ -257,7 +257,7 @@ class TestKernelShap:
             np.abs(phi - expected).max())
 
     def test_dependence_plot_writes(self, tmp_path):
-        from bbbp_tpu.reporting.plots import shap_dependence_plot
+        from bbbp.reporting.plots import shap_dependence_plot
 
         rng = np.random.default_rng(0)
         x = rng.normal(size=(80, 5)).astype(np.float32)

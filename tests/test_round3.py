@@ -28,7 +28,7 @@ def _toy(n=160, d=8, seed=0):
 
 class TestReplicaHparams:
     def test_trial_axis_trains_with_distinct_lrs(self):
-        from bbbp_tpu.train.loop import train_cv
+        from bbbp.train.loop import train_cv
 
         x, y = _toy()
         # trial 0: lr ~ 0 (should barely learn); trial 1: healthy lr
@@ -43,7 +43,7 @@ class TestReplicaHparams:
         assert mse[1] < 0.5 * mse[0], mse
 
     def test_oof_seeds_mean_matches_oof(self):
-        from bbbp_tpu.train.loop import train_cv
+        from bbbp.train.loop import train_cv
 
         x, y = _toy()
         res = train_cv(TinyReg(), (x,), y, n_folds=3, epochs=3,
@@ -54,7 +54,7 @@ class TestReplicaHparams:
 
 class TestNNSearch:
     def test_search_finds_working_lr(self):
-        from bbbp_tpu.train.nn_search import search_nn_cv
+        from bbbp.train.nn_search import search_nn_cv
 
         x, y = _toy()
         res = search_nn_cv(
@@ -70,7 +70,7 @@ class TestNNSearch:
 
 class TestMetaLearners:
     def test_nnls_zeroes_garbage_leg(self):
-        from bbbp_tpu.ops.linear import NonNegativeLinearRegression
+        from bbbp.ops.linear import NonNegativeLinearRegression
 
         rng = np.random.default_rng(0)
         y = rng.normal(size=400).astype(np.float32)
@@ -84,7 +84,7 @@ class TestMetaLearners:
         assert ((pred - y) ** 2).mean() < 0.05
 
     def test_ridgecv_picks_reasonable_alpha(self):
-        from bbbp_tpu.ops.linear import RidgeCV
+        from bbbp.ops.linear import RidgeCV
 
         rng = np.random.default_rng(1)
         x = rng.normal(size=(200, 5)).astype(np.float32)
@@ -96,7 +96,7 @@ class TestMetaLearners:
         assert ((pred - y) ** 2).mean() < 0.01
 
     def test_regression_meta_options_exposed(self):
-        from bbbp_tpu.train.regression import RegressionTrainConfig
+        from bbbp.train.regression import RegressionTrainConfig
 
         assert "nnls" in RegressionTrainConfig.__dataclass_fields__[
             "meta"].metadata or True   # smoke: field exists with default
@@ -105,7 +105,7 @@ class TestMetaLearners:
 
 class TestStrictAffine:
     def test_constant_train_column_passes_through(self):
-        from bbbp_tpu.train.regression import _fold_affine_from
+        from bbbp.train.regression import _fold_affine_from
 
         n = 30
         raw = np.ones((n, 3), np.float32)
@@ -123,7 +123,7 @@ class TestStrictAffine:
 
 class TestAvalonFingerprint:
     def test_shapes_and_determinism(self):
-        from bbbp_tpu.chem.featurize import fingerprints
+        from bbbp.chem.featurize import fingerprints
 
         smis = ["CCO", "c1ccccc1", "CC(=O)Oc1ccccc1C(=O)O", "C1CCNCC1",
                 "not_a_smiles"]
@@ -137,7 +137,7 @@ class TestAvalonFingerprint:
         assert not np.array_equal(r.features[0], r.features[1])
 
     def test_ring_features_differ(self):
-        from bbbp_tpu.chem.featurize import fingerprints
+        from bbbp.chem.featurize import fingerprints
 
         # benzene vs pyridine differ only by one ring heteroatom — the ring
         # feature class must separate them
@@ -147,7 +147,7 @@ class TestAvalonFingerprint:
 
 class TestTanimoto:
     def test_topk_matches_numpy(self):
-        from bbbp_tpu.ops.similarity import tanimoto_topk
+        from bbbp.ops.similarity import tanimoto_topk
 
         rng = np.random.default_rng(0)
         q = (rng.random((5, 64)) < 0.3).astype(np.float32)
@@ -162,7 +162,7 @@ class TestTanimoto:
                                        rtol=1e-5)
 
     def test_knn_regressor_locality(self):
-        from bbbp_tpu.ops.similarity import TanimotoKNNRegressor
+        from bbbp.ops.similarity import TanimotoKNNRegressor
 
         # two well-separated bit clusters with distinct targets
         rng = np.random.default_rng(1)
@@ -180,7 +180,7 @@ class TestTanimoto:
 
 class TestGridSearch:
     def test_grid_enumerates_product_and_ranks_by_f1(self):
-        from bbbp_tpu.train.batched_search import batched_grid_search
+        from bbbp.train.batched_search import batched_grid_search
 
         rng = np.random.default_rng(0)
         x = rng.normal(size=(240, 6)).astype(np.float32)
@@ -192,7 +192,7 @@ class TestGridSearch:
         assert r.best_score > 0.85
 
     def test_extra_trials_seed_default(self):
-        from bbbp_tpu.train.batched_search import batched_random_search
+        from bbbp.train.batched_search import batched_random_search
 
         rng = np.random.default_rng(0)
         x = rng.normal(size=(200, 5)).astype(np.float32)
@@ -205,7 +205,7 @@ class TestGridSearch:
 
 
 def _tiny_processed(n=72, d_fp=24, img=8, seed=0):
-    from bbbp_tpu.pipelines.preprocess import PreprocessConfig, ProcessedData
+    from bbbp.pipelines.preprocess import PreprocessConfig, ProcessedData
 
     rng = np.random.default_rng(seed)
     fp = rng.normal(size=(n, d_fp)).astype(np.float32)
@@ -222,8 +222,8 @@ def _tiny_processed(n=72, d_fp=24, img=8, seed=0):
 
 class TestRegressionPipeline:
     def test_tiny_run_reports_all_meta_variants(self):
-        from bbbp_tpu.train.regression import (RegressionTrainConfig,
-                                               run_regression)
+        from bbbp.train.regression import (RegressionTrainConfig,
+                                           run_regression)
 
         d = _tiny_processed()
         cfg = RegressionTrainConfig(
@@ -243,8 +243,8 @@ class TestRegressionPipeline:
         stay on the label scale (a refactor once summed the seed replicas
         without dividing, inflating every forest leg by tree_seeds and
         driving leg R2 to ~-1.7 in a committed run)."""
-        from bbbp_tpu.train.regression import (RegressionTrainConfig,
-                                               run_regression)
+        from bbbp.train.regression import (RegressionTrainConfig,
+                                           run_regression)
 
         d = _tiny_processed()
         common = dict(
@@ -264,8 +264,8 @@ class TestRegressionPipeline:
         """kernel_n_folds (full-gram fine CV for tkrr/ckrr) and nn_split_mix
         (seed replicas rotating over split_repeats splits) produce finite
         legs and an intact report."""
-        from bbbp_tpu.train.regression import (RegressionTrainConfig,
-                                               run_regression)
+        from bbbp.train.regression import (RegressionTrainConfig,
+                                           run_regression)
 
         d = _tiny_processed()
         cfg = RegressionTrainConfig(
@@ -294,8 +294,8 @@ class TestStrictFineKernels:
         train-row predictions from models that saw that meta-fold's test
         labels. Under strict the fine split must be IGNORED — kernel legs
         fit on the MAIN folds, bit-identical to kernel_n_folds=None."""
-        from bbbp_tpu.train.regression import (RegressionTrainConfig,
-                                               run_regression)
+        from bbbp.train.regression import (RegressionTrainConfig,
+                                           run_regression)
 
         d = _tiny_processed()
         common = dict(
@@ -321,8 +321,8 @@ class TestFpTreeLegs:
     def test_fp_tree_leg_column_in_stack(self):
         """fp_tree_legs adds a gbdt_<kind> OOF column (raw bits + raw
         descriptors, transform-free) that lands in the meta and report."""
-        from bbbp_tpu.train.regression import (RegressionTrainConfig,
-                                               run_regression)
+        from bbbp.train.regression import (RegressionTrainConfig,
+                                           run_regression)
 
         d = _tiny_processed()
         cfg = RegressionTrainConfig(
@@ -338,8 +338,9 @@ class TestFpTreeLegs:
 
 
 class TestBaselineGrid:
-    def test_grid_stage_tunes_and_persists(self, tmp_path, monkeypatch):
-        from bbbp_tpu.train import baseline as bl
+    def test_grid_stage_tunes_and_persists(self, tmp_path, monkeypatch,
+                                           b3db):
+        from bbbp.train import baseline as bl
 
         monkeypatch.setitem(bl.GRID_SPACES, "logreg",
                             {"l2": [10.0, 0.1]})
@@ -359,10 +360,10 @@ class TestBaselineGrid:
 
 
 class TestPreprocessCache:
-    def test_cache_roundtrip(self, tmp_path, monkeypatch):
+    def test_cache_roundtrip(self, tmp_path, monkeypatch, b3db):
         import pickle
 
-        from bbbp_tpu.pipelines import preprocess as pp
+        from bbbp.pipelines import preprocess as pp
 
         calls = {"n": 0}
         real_loader = pp.load_b3db_regression

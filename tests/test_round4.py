@@ -6,12 +6,12 @@ import os
 
 import numpy as np
 
-from bbbp_tpu.chem.graph_features import N_ATOM_FEATURES, graph_features, \
+from bbbp.chem.graph_features import N_ATOM_FEATURES, graph_features, \
     pooled_graph_features
 
 
 class TestMatmulHistogramEngine:
-    """hist='matmul' is the scatter-free MXU histogram path (forest_tpu);
+    """hist='matmul' is the scatter-free matmul histogram path (forest_device);
     it must reproduce the scatter engine's forests."""
 
     def _data(self, n=400, f=12, seed=0):
@@ -25,9 +25,9 @@ class TestMatmulHistogramEngine:
     def test_gbdt_matmul_matches_scatter(self):
         import jax
         import jax.numpy as jnp
-        from bbbp_tpu.ops.forest import BinMapper, MAX_BINS
-        from bbbp_tpu.ops.forest_tpu import (DenseTreeEnsemble,
-                                             fit_forest_launched)
+        from bbbp.ops.forest import BinMapper, MAX_BINS
+        from bbbp.ops.forest_device import (DenseTreeEnsemble,
+                                            fit_forest_launched)
 
         x, y_reg, _ = self._data()
         mapper = BinMapper().fit(x)
@@ -61,9 +61,9 @@ class TestMatmulHistogramEngine:
                                    atol=0.05)
 
     def test_vmapped_forest_search_matches_sequential(self):
-        from bbbp_tpu.train.batched_search import (_forest_cv,
-                                                   _forest_cv_vmapped)
-        from bbbp_tpu.train.search import stratified_kfold_indices
+        from bbbp.train.batched_search import (_forest_cv,
+                                               _forest_cv_vmapped)
+        from bbbp.train.search import stratified_kfold_indices
 
         x, _, y_cls = self._data(n=300)
         folds = stratified_kfold_indices(y_cls, 3, 7)
@@ -93,8 +93,8 @@ class TestMatmulHistogramEngine:
         # reads OOF predictions straight from the fit); mean must track y
         import jax
         import jax.numpy as jnp
-        from bbbp_tpu.ops.forest import BinMapper, MAX_BINS
-        from bbbp_tpu.ops.forest_tpu import _fit_forest_jit
+        from bbbp.ops.forest import BinMapper, MAX_BINS
+        from bbbp.ops.forest_device import _fit_forest_jit
 
         x, y_reg, _ = self._data(n=256)
         mapper = BinMapper().fit(x)
@@ -117,7 +117,7 @@ class TestMatmulHistogramEngine:
 class TestScreenPipelineErrors:
     def test_producer_error_propagates_without_hang(self, tmp_path):
         import pytest
-        from bbbp_tpu.pipelines.screen import ScreeningModel, screen
+        from bbbp.pipelines.screen import ScreeningModel, screen
 
         labels = np.array([1, 0, 1, 0] * 8, np.float32)
         model = ScreeningModel.train(["CCO", "CCN", "c1ccccc1", "CCS"] * 8,
@@ -138,8 +138,8 @@ class TestReferenceStackMeta:
         """The reference's meta (forest stack over the OOF matrix, predicted
         in-sample, Models/...20250113.py:394-403) must beat the linear
         in-sample meta — that memorization is exactly what it reproduces."""
-        from bbbp_tpu.ops.linear import LinearRegression
-        from bbbp_tpu.train.regression import _reference_stack_meta
+        from bbbp.ops.linear import LinearRegression
+        from bbbp.train.regression import _reference_stack_meta
 
         rng = np.random.default_rng(0)
         n = 200
@@ -159,7 +159,7 @@ class TestReferenceStackMeta:
 
 class TestRepeatedCVSelection:
     def test_repeats_average_and_report_spread(self):
-        from bbbp_tpu.train.batched_search import batched_random_search
+        from bbbp.train.batched_search import batched_random_search
 
         rng = np.random.default_rng(0)
         x = rng.normal(size=(160, 8)).astype(np.float32)
@@ -209,8 +209,9 @@ class TestPooledGraphFeatures:
         assert np.isfinite(pooled[1]).all()
         assert pooled[1, :].sum() == 0.0
 
-    def test_featurize_graph_writes_gpu_features_contract(self, tmp_path):
-        from bbbp_tpu.pipelines.featurize import featurize_graph_b3db
+    def test_featurize_graph_writes_gpu_features_contract(self, tmp_path,
+                                                         b3db):
+        from bbbp.pipelines.featurize import featurize_graph_b3db
 
         out = featurize_graph_b3db("classification", str(tmp_path), limit=20)
         assert os.path.basename(out["npy"]) == "gpu_features.npy"
@@ -223,8 +224,8 @@ class TestPooledGraphFeatures:
         for i in out["bad_indices"]:
             assert arr[i].sum() == 0.0
 
-    def test_baseline_runs_on_graph_features(self):
-        from bbbp_tpu.train.baseline import BaselineConfig, run_baseline
+    def test_baseline_runs_on_graph_features(self, b3db):
+        from bbbp.train.baseline import BaselineConfig, run_baseline
 
         # limit=400 keeps both classes present (the TSV is label-ordered:
         # the first ~250 rows are all BBB-)

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from bbbp_tpu.train.transfer import (TransferConfig, _auc,
-                                     transfer_features)
+from bbbp.train.transfer import (TransferConfig, _auc,
+                                 transfer_features)
 
 
 def _aux(n_rep=4):
@@ -48,10 +48,10 @@ class TestTransferFeatures:
         r2 = transfer_features(q, cfg, aux_data=(s, 1 - y), verbose=False)
         np.testing.assert_array_equal(r1.features, r2.features)
 
-    def test_aux_exclusion_drops_regression_rows(self):
-        from bbbp_tpu.data.b3db import (load_b3db_classification,
-                                        load_b3db_regression)
-        from bbbp_tpu.train.transfer import aux_classification_set
+    def test_aux_exclusion_drops_regression_rows(self, b3db):
+        from bbbp.data.b3db import (load_b3db_classification,
+                                    load_b3db_regression)
+        from bbbp.train.transfer import aux_classification_set
 
         smiles, labels, n_excl = aux_classification_set()
         n_cls = len(load_b3db_classification().smiles)
@@ -66,7 +66,7 @@ class TestTransferFeatures:
 
 class TestTanimotoKernelRidge:
     def test_interpolates_cluster_targets(self):
-        from bbbp_tpu.ops.similarity import TanimotoKernelRidge
+        from bbbp.ops.similarity import TanimotoKernelRidge
 
         rng = np.random.default_rng(1)
         a = (rng.random((40, 32)) < 0.5).astype(np.float32)
@@ -81,7 +81,7 @@ class TestTanimotoKernelRidge:
         assert np.all(pred[:5] > 0.5) and np.all(pred[5:] < -0.5)
 
     def test_matches_numpy_closed_form(self):
-        from bbbp_tpu.ops.similarity import TanimotoKernelRidge
+        from bbbp.ops.similarity import TanimotoKernelRidge
 
         rng = np.random.default_rng(2)
         x = (rng.random((30, 24)) < 0.4).astype(np.float32)
@@ -98,7 +98,7 @@ class TestTanimotoKernelRidge:
 
 class TestChemKernelRidge:
     def test_minmax_matches_numpy(self):
-        from bbbp_tpu.ops.similarity import minmax_matrix
+        from bbbp.ops.similarity import minmax_matrix
 
         rng = np.random.default_rng(0)
         a = rng.integers(0, 6, (20, 40)).astype(np.float32)
@@ -111,7 +111,7 @@ class TestChemKernelRidge:
                 assert abs(got[i, j] - ref) < 1e-5
 
     def test_minmax_clips_consistently(self):
-        from bbbp_tpu.ops.similarity import minmax_matrix
+        from bbbp.ops.similarity import minmax_matrix
 
         a = np.array([[40.0, 1.0]])
         b = np.array([[40.0, 1.0]])
@@ -119,8 +119,8 @@ class TestChemKernelRidge:
         assert abs(float(minmax_matrix(a, b, 8)[0, 0]) - 1.0) < 1e-6
 
     def test_weighted_kernels_match_numpy(self):
-        from bbbp_tpu.ops.similarity import (minmax_matrix_w,
-                                             tanimoto_matrix_w)
+        from bbbp.ops.similarity import (minmax_matrix_w,
+                                         tanimoto_matrix_w)
 
         rng = np.random.default_rng(3)
         a = (rng.random((12, 30)) < 0.3).astype(np.float32)
@@ -141,7 +141,7 @@ class TestChemKernelRidge:
                 den = (w * np.maximum(ca[i], cb[j])).sum()
                 assert abs(got[i, j] - num / den) < 1e-5
         # unit weights reproduce the unweighted kernels
-        from bbbp_tpu.ops.similarity import minmax_matrix, tanimoto_matrix
+        from bbbp.ops.similarity import minmax_matrix, tanimoto_matrix
         ones = np.ones(30, np.float32)
         np.testing.assert_allclose(np.asarray(tanimoto_matrix_w(a, b, ones)),
                                    np.asarray(tanimoto_matrix(a, b)),
@@ -151,7 +151,7 @@ class TestChemKernelRidge:
                                    atol=1e-6)
 
     def test_idf_weighted_ckrr_runs(self):
-        from bbbp_tpu.ops.similarity import ChemKernelRidge
+        from bbbp.ops.similarity import ChemKernelRidge
 
         rng = np.random.default_rng(5)
         maccs = (rng.random((60, 40)) < 0.25).astype(np.float32)
@@ -171,7 +171,7 @@ class TestChemKernelRidge:
         np.testing.assert_allclose(g, g.T, atol=1e-5)
 
     def test_combined_kernel_ridge_predicts(self):
-        from bbbp_tpu.ops.similarity import ChemKernelRidge
+        from bbbp.ops.similarity import ChemKernelRidge
 
         rng = np.random.default_rng(1)
         maccs = (rng.random((80, 50)) < 0.3).astype(np.float32)
@@ -186,7 +186,7 @@ class TestChemKernelRidge:
 
 class TestAuxPretrain:
     def test_drop_output_dense(self):
-        from bbbp_tpu.train.aux_pretrain import drop_output_dense
+        from bbbp.train.aux_pretrain import drop_output_dense
 
         p = {"Dense_0": 1, "Dense_2": 2, "Dense_10": 3, "LayerNorm_0": 4,
              "enc0": {"Dense_5": 5}}
@@ -195,10 +195,10 @@ class TestAuxPretrain:
         assert out["enc0"] == {"Dense_5": 5}      # only top level considered
 
     def test_mpnn_pretrain_and_warm_start(self, tmp_path, monkeypatch):
-        import bbbp_tpu.train.aux_pretrain as ap
-        from bbbp_tpu.train.aux_pretrain import (AuxPretrainConfig,
-                                                 load_warm_start,
-                                                 pretrain_aux)
+        import bbbp.train.aux_pretrain as ap
+        from bbbp.train.aux_pretrain import (AuxPretrainConfig,
+                                             load_warm_start,
+                                             pretrain_aux)
 
         aux_s = ["CCO", "CCN", "CCC", "CCCC", "CCOC", "CC(=O)O", "c1ccccc1",
                  "c1ccccc1C", "CCCCO", "NCCN", "OCCO", "CCCCC"] * 6
@@ -217,9 +217,9 @@ class TestAuxPretrain:
                        for k in params if k.startswith("Dense_"))
         assert dense, "trunk Dense layers expected"
         # warm-starting the regression fold trainer must accept the pytree
-        from bbbp_tpu.chem.graph_features import graph_features
-        from bbbp_tpu.models.gnn import MPNNRegressor
-        from bbbp_tpu.train.loop import train_cv
+        from bbbp.chem.graph_features import graph_features
+        from bbbp.models.gnn import MPNNRegressor
+        from bbbp.train.loop import train_cv
 
         feats, _, adj_t, mask, _ = graph_features(aux_s[:24], max_atoms=16,
                                                   edge_types=True)

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from bbbp_tpu.chem.smiles import MolFromSmiles
-from bbbp_tpu.chem.writer import MolToSmiles, canonical_ranks
-from bbbp_tpu.chem.fingerprints import morgan_bits
+from bbbp.chem.smiles import MolFromSmiles
+from bbbp.chem.writer import MolToSmiles, canonical_ranks
+from bbbp.chem.fingerprints import morgan_bits
 
 
 CASES = [
@@ -25,8 +25,8 @@ class TestRoundtrip:
         assert m2 is not None, out
         assert morgan_bits(m) == morgan_bits(m2), (smiles, out)
 
-    def test_b3db_roundtrip_rate(self):
-        from bbbp_tpu.data import load_b3db_regression
+    def test_b3db_roundtrip_rate(self, b3db):
+        from bbbp.data import load_b3db_regression
 
         smiles = load_b3db_regression().smiles
         fails = 0
@@ -68,8 +68,8 @@ class TestCanonical:
 
 class TestKekulize:
     def test_benzene(self):
-        from bbbp_tpu.chem.kekulize import kekulize
-        from bbbp_tpu.chem.mol import BOND_DOUBLE
+        from bbbp.chem.kekulize import kekulize
+        from bbbp.chem.mol import BOND_DOUBLE
 
         m = MolFromSmiles("c1ccccc1")
         kmap = kekulize(m)
@@ -78,8 +78,8 @@ class TestKekulize:
         assert doubles == 3
 
     def test_pyrrole_no_double_on_nh(self):
-        from bbbp_tpu.chem.kekulize import kekulize
-        from bbbp_tpu.chem.mol import BOND_DOUBLE
+        from bbbp.chem.kekulize import kekulize
+        from bbbp.chem.mol import BOND_DOUBLE
 
         m = MolFromSmiles("c1cc[nH]c1")
         kmap = kekulize(m)
@@ -90,8 +90,8 @@ class TestKekulize:
                 assert kmap[bi] != BOND_DOUBLE
 
     def test_fused(self):
-        from bbbp_tpu.chem.kekulize import kekulize
-        from bbbp_tpu.chem.mol import BOND_DOUBLE
+        from bbbp.chem.kekulize import kekulize
+        from bbbp.chem.mol import BOND_DOUBLE
 
         m = MolFromSmiles("c1ccc2ccccc2c1")
         kmap = kekulize(m)
@@ -101,7 +101,7 @@ class TestKekulize:
 
 class TestSanitization:
     def test_biaryl_single_not_aromatic(self):
-        from bbbp_tpu.chem.mol import BOND_AROMATIC
+        from bbbp.chem.mol import BOND_AROMATIC
 
         m = MolFromSmiles("c1ccccc1c1ccccc1")  # biphenyl without '-'
         non_ring_arom = [b for b in m.bonds
